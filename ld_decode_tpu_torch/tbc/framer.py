@@ -1,0 +1,285 @@
+"""Frame assembly: field pairing, interlace weave, resync policy, MTF
+feedback and frame-accurate seek (torch port of
+ld_decode_tpu/tbc/framer.py).
+
+Host-side control flow over per-field results; the compute runs in the
+batched device pipeline (tbc/pipeline.py, tbc/fused.py).  Only the batched
+path is ported: `batch` must be > 1.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ld_decode_tpu_torch.utils.params import DecoderConfig
+from ld_decode_tpu_torch.ops import demod as D
+from ld_decode_tpu_torch.ops.filters import DemodBank
+from ld_decode_tpu_torch.tbc import fused as FU
+from ld_decode_tpu_torch.tbc.field import FieldDecoder
+from ld_decode_tpu_torch.tbc.pipeline import FieldPrefetcher
+
+BATCH1_TODO = ('the sequential --batch 1 decode is not ported (ROADMAP.md '
+               'Queue 1, item P2); use batch > 1')
+
+
+def to_device_capture(samples: np.ndarray, device) -> torch.Tensor:
+    """Raw capture samples -> the resident float32 capture.  .r16 captures
+    are signed and zero-centred: they are recentred to unsigned 16-bit
+    like every other format (a DC shift is invisible to the FM demod's RF
+    bandpass).  float32 holds every 16-bit sample exactly."""
+    arr = np.asarray(samples)
+    if np.issubdtype(arr.dtype, np.signedinteger):
+        arr = arr.astype(np.int32) + 32768
+    return torch.from_numpy(arr.astype(np.float32)).to(device)
+
+
+class Framer:
+    def __init__(self, cfg: DecoderConfig, bank: DemodBank,
+                 loader: Callable = None, nblocks: int = 66,
+                 capture: np.ndarray = None, batch: int = 8,
+                 despackle: bool = False, segment_samples: int = 0,
+                 rot_level: float = 40.0, flip_fields: bool = False,
+                 bff: bool = False, device=None):
+        """Either `loader` (file reads into a sliding device-resident
+        segment of `segment_samples`) or `capture` (the whole capture kept
+        on the device) must be given.  Batches of `batch` speculative
+        fields run through the device pipeline; the audio carry advances
+        per field."""
+        FU.require_ntsc(cfg)
+        if batch <= 1:
+            raise NotImplementedError(BATCH1_TODO)
+        if (loader is None) == (capture is None):
+            raise ValueError('give exactly one of loader= and capture=')
+        self.cfg = cfg
+        self.device = torch.device(device if device is not None
+                                   else bank.device)
+        self.bank = bank.to(self.device)
+        self.loader = loader
+        self.despackle = despackle
+        self.rot_level = rot_level
+        self.flip_fields = flip_fields
+        self.bff = bff
+        self.nblocks = nblocks
+        self.decoder = FieldDecoder(cfg, self.bank, nblocks, self.device)
+
+        capture_dev = None
+        if capture is not None:
+            capture_dev = to_device_capture(capture, self.device)
+        self.prefetcher = FieldPrefetcher(self.decoder, capture_dev, batch)
+        self._seg_samples = 0
+        if capture_dev is None:
+            if segment_samples <= 0:
+                segment_samples = 256 << 20      # 1 GiB of float32
+            # lookahead the chain needs resident beyond any request
+            horizon = ((self.prefetcher.DEPTH + 1) * batch
+                       * self.prefetcher.field_pitch
+                       + D.stream_len(cfg, nblocks))
+            self._seg_samples = max(int(segment_samples), 2 * horizon)
+            self._seg_horizon = horizon
+            self._seg_base = -1                  # nothing loaded yet
+            self._seg_eof = False
+            self._seg_valid = 0
+
+        self.outwidth = cfg.sys.outlinelen
+        self.outlines = cfg.sys.frame_lines
+        self.clvfps = 25 if cfg.system == 'PAL' else 30
+        self.audio_offset = 0.0
+        self.mtf_level = 1.0
+        self.vbi = {'framenr': None, 'isclv': False, 'minutes': None}
+
+    # ------------------------------------------------------------------
+
+    def _ensure_segment(self, infile, sample: int) -> bool:
+        """Segmented mode: make [sample, sample+horizon) device-resident.
+        Returns False at end of file (nothing loadable at `sample`)."""
+        if self._seg_samples == 0:
+            return True
+        n_stream = D.stream_len(self.cfg, self.nblocks)
+        lo = self._seg_base
+        seg_len = self._seg_valid
+        if lo >= 0 and lo + self.cfg.blockcut <= sample and (
+                sample + self._seg_horizon <= lo + seg_len
+                # at the file tail no reload can extend coverage: accept
+                # while one decode window still fits
+                or (self._seg_eof and sample - lo + n_stream <= seg_len)):
+            return True
+        from ld_decode_tpu_torch.io.loaders import file_samples, load_available
+        base = max(int(sample) - self.cfg.blockcut - 8 * self.cfg.linelen, 0)
+        avail = file_samples(self.loader, infile)
+        if avail is not None:
+            n = min(self._seg_samples, avail - base)
+            data = self.loader(infile, base, n) if n >= n_stream else None
+        else:
+            data = load_available(self.loader, infile, base,
+                                  self._seg_samples, n_stream)
+        if data is None or len(data) < n_stream:
+            return False
+        self._seg_eof = len(data) < self._seg_samples
+        self._seg_valid = len(data)
+        self._seg_base = base
+        self.prefetcher.set_capture(to_device_capture(data, self.device),
+                                    base, valid_len=self._seg_valid)
+        return True
+
+    def readfield(self, infile, sample: int):
+        """Decode the field at `sample`, skipping invalid windows."""
+        cfg = self.cfg
+        readsample = int(sample)
+        while True:
+            if not self._ensure_segment(infile, readsample):
+                return None, None, None
+            f = self.prefetcher.get(readsample, self.mtf_level,
+                                    self.audio_offset)
+            if f is None:
+                return None, None, None
+            if f.valid and f.dsaudio is not None:
+                # batched mode: per-field audio carry
+                self.audio_offset = f.audio_next_offset
+            # advance from the actual decode-window start
+            base = f.readsample if f.readsample >= 0 else readsample
+            nextsample = base + f.nextfieldoffset
+            if not f.valid:
+                if f.peak_count < 100:
+                    # no recognizable data: jump 10s past possible spin-up
+                    nextsample = readsample + int(cfg.freq_hz * 10)
+                elif f.vsync_count == 0:
+                    nextsample = readsample + int(cfg.freq_hz * 1)
+                readsample = nextsample
+            else:
+                return f, readsample, nextsample
+
+    def mergevbi(self, fields) -> dict:
+        merged = dict(fields[0].vbi)
+        for k, v in fields[1].vbi.items():
+            if v is not None:
+                merged[k] = v
+        if merged.get('seconds') is not None:
+            merged['framenr'] = (merged['minutes'] * 60 * self.clvfps
+                                 + merged['seconds'] * self.clvfps
+                                 + merged['clvframe'])
+        return merged
+
+    def formatoutput(self, fields) -> np.ndarray:
+        """Interlace weave incl. the visible half-line."""
+        W = self.outwidth
+        half = min(fields[0].linecount, fields[1].linecount)
+        linecount = half * 2
+        combined = np.zeros(W * self.outlines, dtype=np.uint16)
+        rows = combined.reshape(self.outlines, W)
+        top, bot = (fields[1], fields[0]) if self.flip_fields else fields
+        rows[0:linecount:2] = top.dspicture[:half * W].reshape(-1, W)
+        rows[1:linecount:2] = bot.dspicture[:half * W].reshape(-1, W)
+        lf = int(np.argmax([fields[0].linecount, fields[1].linecount]))
+        cur = linecount // 2
+        if (cur + 1) * W <= len(fields[lf].dspicture):
+            combined[linecount * W:(linecount + 1) * W] = \
+                fields[lf].dspicture[cur * W:cur * W + W]
+        return combined
+
+    def readframe(self, infile, sample: int, firstframe: bool = False,
+                  CAV: bool = False):
+        """Pair two fields into a frame: (frame u16, audio i16, next
+        sample, fields), or Nones at EOF."""
+        cfg = self.cfg
+        fieldcount = 0
+        fields = [None, None]
+        audio = []
+        f = None
+
+        while fieldcount < 2:
+            f, readsample, nextsample = self.readfield(infile, sample)
+            if f is not None:
+                if f.istop:
+                    fields[0] = f
+                else:
+                    fields[1] = f
+                if ((not CAV and (f.istop == (cfg.sys.topfirst ^ self.bff)))
+                        or (CAV and (f.vbi['framenr'] or f.vbi['minutes']))):
+                    fieldcount = 1
+                elif fieldcount == 1:
+                    fieldcount = 2
+                if (fieldcount or not firstframe) and f.dsaudio is not None:
+                    audio.append(f.dsaudio)
+            elif readsample is None:
+                return None, None, None, None
+            sample = nextsample
+
+        if audio:
+            conaudio = np.concatenate(audio)
+            self.audio_offset = f.audio_next_offset
+        else:
+            conaudio = None
+
+        combined = self.formatoutput(fields)
+        if self.despackle:
+            # rot concealment post-pass (reference tbc.cpp:1528-1565)
+            from ld_decode_tpu_torch.tbc.despackle import despackle as _dsp
+            scale = ((0xc800 - 0x0400) if cfg.system == 'NTSC'
+                     else (0xd300 - 0x0100)) / (100 - cfg.sys.vsync_ire)
+            off = 1024 if cfg.system == 'NTSC' else 256
+            combined = _dsp(combined, self.outwidth, scale, off,
+                            cfg.sys.vsync_ire, rot_level=self.rot_level)
+        self.vbi = self.mergevbi(fields)
+
+        # full line-0 metadata words (ld-decoder.h:227-252 spec)
+        from ld_decode_tpu_torch.vbi.metadata import frame_metadata_words
+        combined[:16] = frame_metadata_words(fields, self.vbi, cfg)
+
+        # MTF compensation feedback: the CAV frame number drives the RF
+        # equalizer level; a large change forces a re-decode
+        if not f.vbi['isclv'] and f.vbi['framenr'] is not None:
+            newmtf = max(1 - (f.vbi['framenr'] / 10000), 0)
+            oldmtf = self.mtf_level
+            self.mtf_level = newmtf
+            if abs(newmtf - oldmtf) > .1:
+                return self.readframe(infile, sample, firstframe, CAV)
+
+        return combined, conaudio, sample, fields
+
+
+def findframe(infile, framer: Framer, target: int,
+              nextsample: int = 0) -> Optional[int]:
+    """Frame-accurate seek by decode-probe + jump."""
+    cfg = framer.cfg
+    samples_per_frame = int(cfg.freq_hz / cfg.sys.fps)
+    framer.vbi = {'framenr': None, 'isclv': False, 'minutes': None}
+
+    iscav = False
+    tolerance = 0
+    rv = None
+    retry = 5
+    while framer.vbi.get('framenr') is None and retry:
+        rv = framer.readframe(infile, nextsample, CAV=False)
+        if framer.vbi.get('isclv'):
+            tolerance = 1
+        else:
+            tolerance = 0
+            iscav = True
+        if framer.vbi.get('framenr') is None:
+            # only jump the 10 s spin-up distance on a FAILED probe
+            nextsample = (rv[2] if rv[2] is not None else nextsample) \
+                + int(cfg.freq_hz * 10)
+        retry -= 1
+
+    if framer.vbi.get('framenr') is None:
+        return None
+
+    if abs(target - framer.vbi['framenr']) <= tolerance:
+        # the probe already landed on the target: point back at the frame
+        # the probe consumed
+        return rv[2] + samples_per_frame * (target - 1
+                                            - framer.vbi['framenr'])
+
+    retry = 5
+    while abs(target - framer.vbi['framenr']) > tolerance and retry:
+        if rv is None or rv[2] is None:
+            return None
+        offset = samples_per_frame * (target - 1 - framer.vbi['framenr'])
+        nextsample = rv[2] + offset
+        rv = framer.readframe(infile, nextsample, CAV=iscav)
+        retry -= 1
+
+    return nextsample

@@ -1,0 +1,178 @@
+#!/usr/bin/env python
+"""CLI front-end of the PyTorch port: raw RF LaserDisc capture -> <out>.tbc
+(4fsc 16-bit frames) + <out>.pcm (16-bit 48 kHz stereo).
+
+Same arguments as lddecode_tpu.py, minus --pic-mode (a transfer mode of
+the JAX package).  Decodes on the first CUDA device when there is one, else
+on the CPU.  NTSC with batch > 1 only: PAL (-p), --batch 1 and the EFM
+digital-audio decode (--efm) raise NotImplementedError naming their
+ROADMAP.md item.
+"""
+
+import argparse
+import os
+import sys
+
+import numpy as np
+
+EFM_TODO = ('the EFM digital-audio decode is not ported (ROADMAP.md Queue 1, '
+            'item P3: audio/efm.py, circ.py, subcode.py)')
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description='Extract audio and video from raw RF laserdisc captures '
+                    '(PyTorch port)')
+    p.add_argument('infile', type=str, help='source file')
+    p.add_argument('outfile', type=str, help='base name for destination files')
+    p.add_argument('-s', '--start', type=int, default=0,
+                   help='rough jump to frame n of capture (default 0)')
+    p.add_argument('-S', '--seek', type=int, default=-1,
+                   help='seek to frame n of capture')
+    p.add_argument('-E', '--end', type=int, default=-1,
+                   help='cutting: last frame')
+    p.add_argument('-l', '--length', type=int, default=None,
+                   help='limit length to n frames')
+    p.add_argument('-p', '--pal', action='store_true',
+                   help='source is in PAL format (not ported yet)')
+    p.add_argument('-n', '--ntsc', action='store_true',
+                   help='source is in NTSC format')
+    p.add_argument('-c', '--cut', action='store_true',
+                   help='cut (to r16) instead of decode')
+    p.add_argument('--batch', type=int, default=8,
+                   help='speculative field-batch size for the device '
+                        'pipeline (must be > 1)')
+    p.add_argument('--segment-mb', type=int, default=512,
+                   help='device-resident capture window, MB of 16-bit '
+                        'samples (decoding runs inside a sliding segment '
+                        'of the file)')
+    p.add_argument('--f64', action='store_true',
+                   help='run the filter bank at float64')
+    p.add_argument('--despackle', action='store_true',
+                   help='conceal laser-rot dropouts in the output picture')
+    p.add_argument('-r', '--rot', type=float, default=40.0,
+                   help='laser-rot detection level for --despackle '
+                        '(IRE margin outside 0..100)')
+    p.add_argument('-f', '--flip', action='store_true',
+                   help='flip video fields (swap even/odd weave order)')
+    p.add_argument('-z', '--freeze', action='store_true',
+                   help='freeze-frame: decode one frame and repeat it '
+                        'for the requested length')
+    p.add_argument('-m', '--bff', action='store_true',
+                   help='magnetic video mode: pair frames bottom-field '
+                        'first (VHS-style)')
+    p.add_argument('-A', '--audio-only', action='store_true',
+                   help='output only audio (no .tbc file)')
+    p.add_argument('--efm', action='store_true',
+                   help='EFM digital-audio decode (not ported yet)')
+    p.add_argument('-q', '--quiet', action='store_true',
+                   help='warnings and errors only')
+    p.add_argument('-d', '--debug', action='store_true',
+                   help='debug output (per-frame progress percentage)')
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from ld_decode_tpu_torch.utils import log
+    log.configure_from_flags(quiet=args.quiet, debug=args.debug)
+    if args.pal and args.ntsc:
+        log.critical('Can only be PAL or NTSC')
+        return 1
+    if args.pal:
+        from ld_decode_tpu_torch.tbc.fused import PAL_TODO
+        raise NotImplementedError(PAL_TODO)
+    if args.batch <= 1:
+        from ld_decode_tpu_torch.tbc.framer import BATCH1_TODO
+        raise NotImplementedError(BATCH1_TODO)
+    if args.efm:
+        raise NotImplementedError(EFM_TODO)
+
+    import torch
+    from ld_decode_tpu_torch.io import loaders as L
+    from ld_decode_tpu_torch.utils.params import DecoderConfig
+    from ld_decode_tpu_torch.ops import filters as F
+    from ld_decode_tpu_torch.tbc import framer as FR
+
+    device = 'cuda' if torch.cuda.is_available() else 'cpu'
+    cfg = DecoderConfig(system='NTSC', freq_mhz=40.0)
+    bank = F.make_demod_bank(
+        cfg, dtype=np.complex128 if args.f64 else np.complex64,
+        device=device)
+    loader = L.loader_for_path(args.infile)
+
+    samples_per_frame = int(cfg.freq_hz / cfg.sys.fps) + 1
+    bytes_per_sample = L.bytes_per_sample_for_path(args.infile)
+    bytes_per_frame = int(samples_per_frame * bytes_per_sample)
+
+    infile_size = os.path.getsize(args.infile)
+    if (infile_size // bytes_per_frame - args.start) < 2:
+        log.critical('start frame is past end of file')
+        return 1
+    num_frames = args.length if args.length is not None \
+        else infile_size // bytes_per_frame - args.start
+
+    with open(args.infile, 'rb') as fd:
+        framer = FR.Framer(cfg, bank, loader, batch=args.batch,
+                           segment_samples=args.segment_mb * (1 << 20) // 2,
+                           despackle=args.despackle, rot_level=args.rot,
+                           flip_fields=args.flip, bff=args.bff,
+                           device=device)
+
+        if args.seek >= 0:
+            nextsample = FR.findframe(fd, framer, args.seek,
+                                      args.start * samples_per_frame)
+            if nextsample is None:
+                log.critical('SEEK ERROR: unable to find a usable frame')
+                return 1
+        else:
+            nextsample = args.start * samples_per_frame
+
+        if args.cut:
+            lastsample = FR.findframe(fd, framer, args.end, nextsample)
+            lastsample += int(samples_per_frame * .25)
+            with open(args.outfile + '.r16', 'wb') as outfile:
+                for i in range(int(nextsample), int(lastsample), 16384):
+                    n = min(16384, int(lastsample) - i)
+                    data = loader(fd, i, n)
+                    if data is None:
+                        break
+                    outfile.write(np.asarray(data, dtype=np.int16).tobytes())
+            return 0
+
+        out_video = None if args.audio_only \
+            else open(args.outfile + '.tbc', 'wb')
+        out_audio = open(args.outfile + '.pcm', 'wb')
+        try:
+            frozen = None
+            for f in range(num_frames):
+                if frozen is not None:
+                    if out_video is not None:
+                        out_video.write(frozen.tobytes())
+                    continue
+                combined, audio, nextsample, fields = framer.readframe(
+                    fd, nextsample, f == 0)
+                if combined is None:
+                    if args.length is not None and f < num_frames - 1:
+                        log.warning('end of file before requested frame '
+                                    'count')
+                    break
+                log.info(f'frame {framer.vbi.get("framenr")}')
+                if log.get_level() <= log.DEBUG:
+                    log.progress(nextsample * bytes_per_sample, infile_size)
+                if out_video is not None:
+                    out_video.write(combined.tobytes())
+                if audio is not None:
+                    out_audio.write(audio.tobytes())
+                if args.freeze:
+                    frozen = combined
+        finally:
+            if out_video is not None:
+                out_video.close()
+            out_audio.close()
+
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

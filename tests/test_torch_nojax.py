@@ -1,0 +1,95 @@
+"""PyTorch port: it imports neither jax nor the JAX package, runs with both
+blocked, and its chip smoke script refuses to run without a CUDA card."""
+
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_FILES = [os.path.join(d, f)
+              for d, _, fs in os.walk(os.path.join(ROOT, 'ld_decode_tpu_torch'))
+              for f in fs if f.endswith('.py')] \
+    + [os.path.join(ROOT, 'lddecode_torch.py'),
+       os.path.join(ROOT, 'chip_smoke.py')]
+FORBIDDEN = re.compile(
+    r'^\s*(import\s+jax\b|from\s+jax\b|import\s+ld_decode_tpu\b(?!_torch)'
+    r'|from\s+ld_decode_tpu\b(?!_torch))', re.M)
+
+
+def test_port_sources_import_no_jax():
+    assert len(PORT_FILES) > 15
+    for path in PORT_FILES:
+        with open(path) as f:
+            m = FORBIDDEN.search(f.read())
+        assert m is None, f'{path}: {m.group(0).strip()}'
+
+
+BLOCKED = r'''
+import sys
+sys.modules['jax'] = None            # any import of jax now raises
+sys.modules['ld_decode_tpu'] = None  # nor may the JAX package load
+import numpy as np
+import torch
+import lddecode_torch
+from ld_decode_tpu_torch.models import encode as E
+from ld_decode_tpu_torch.ops import demod as D, filters as F
+from ld_decode_tpu_torch.tbc import cuda_resample as CR, framer, fused
+from ld_decode_tpu_torch.utils.params import DecoderConfig
+cfg = DecoderConfig()
+cap = E.encode_frames(cfg, 1, E.EncodeSpec(pattern='flat50'))
+n = D.stream_len(cfg, 12)
+video, audio = D.demod_stream(torch.from_numpy(cap[:n].astype(np.float32)),
+                              F.make_demod_bank(cfg), cfg, 12, 1.0)
+ire = cfg.hztoire(video['demod'].numpy())
+assert -42 < np.median(ire[ire < -35]) < -38          # sync tips
+assert 48 < np.median(ire[(ire > 40) & (ire < 60)]) < 52
+lli = torch.tensor([[1000 + 2542 * k for k in range(6)]], dtype=torch.int32)
+llf = torch.zeros((1, 6))
+out = CR.resample_lines_batch(video['demod'][None].contiguous(), lli, llf,
+                              910, 5, 2542.0)
+assert out.shape == (1, 5, 910) and torch.isfinite(out).all()
+assert CR.resample_lines_batch.launches == 0
+assert not [m for m, mod in sys.modules.items() if mod is not None
+            and (m in ('jax', 'ld_decode_tpu')
+                 or m.startswith(('jax.', 'ld_decode_tpu.')))]
+print('PORT_OK')
+'''
+
+
+def test_port_runs_with_jax_blocked():
+    proc = subprocess.run([sys.executable, '-c', BLOCKED], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert 'PORT_OK' in proc.stdout
+
+
+def _no_result(proc):
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    """In a directory holding chip_smoke.py and nothing else of the repo
+    the script exits nonzero and prints no result."""
+    shutil.copy(os.path.join(ROOT, 'chip_smoke.py'), tmp_path)
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    proc = subprocess.run([sys.executable, 'chip_smoke.py'], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=300,
+                          env=env)
+    _no_result(proc)
+
+
+def test_chip_smoke_needs_a_card():
+    """Without a CUDA device the script exits nonzero, no CPU fallback."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: chip_smoke.py would run')
+    proc = subprocess.run([sys.executable, 'chip_smoke.py'], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    _no_result(proc)
+    assert 'no CUDA device' in proc.stdout
