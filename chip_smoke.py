@@ -5,18 +5,29 @@
 
 Phases, in order (any failure exits nonzero; there is no CPU fallback):
   1. device: card name and power limit, torch and CUDA versions;
-  2. build: the hand-written CUDA kernel(s) from ld_decode_tpu_torch/csrc;
-  3. kernel vs plain PyTorch version on the card, at the main path's
-     shapes, with CUDA-event timings of both;
-  4. main path: a 48-frame synthetic NTSC capture decoded by the port's
+  2. build: the hand-written CUDA kernels from ld_decode_tpu_torch/csrc,
+     one nvcc per source, all started together;
+  3. each kernel vs its plain PyTorch version on the card, at the main
+     paths' shapes, with device times (CUDA-graph replay between CUDA
+     events) of both, of the one PyTorch call that computes the same
+     function where there is one, and the bound the card sets;
+  4. decode path: a 48-frame synthetic NTSC capture decoded by the port's
      Framer (batch 16, nblocks 52) from sample 33046 -- >= 32 frames with
-     consecutive CAV frame numbers, kernel launches counted;
+     consecutive CAV frame numbers, K1 launches counted;
   5. one field batch on the card vs on the CPU (plain versions) from the
      same locked start, then once more under sync-debug "error" mode;
-  6. the CLI (lddecode_torch.py) on a 10-frame .r16 capture.
+  6. the decode CLI (lddecode_torch.py) on a 10-frame .r16 capture;
+  7. chain path: the same capture through Framer(fetch_picture=False) and
+     the dim-3 optical-flow comb in windows of 8 with 3 in flight, as
+     ldchain_torch.py runs it -- >= 16 RGB frames with consecutive CAV
+     numbers in their line-0 words, K1 and K2 launches counted;
+  8. one comb window of 4 device frames (a smooth texture added, so the
+     flow is well posed) combed on the card and on the CPU;
+  9. the chain CLI (ldchain_torch.py) on the 10-frame capture.
 The line before the last is the kernel JSON; the last line is the result.
 """
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -29,6 +40,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 RNG_SEED = 1234
 K1_TOL_MAX = 1e-2      # kernel vs plain: max |d| (tests/test_pallas_resample)
 K1_TOL_MEAN = 1e-4     # kernel vs plain: mean |d|
+HBM_BYTES_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
+F32_FLOP_S = 67e12     # H100 SXM float32 outside the tensor cores
+# comb card vs CPU, dim 3 with flow on textured frames: the JAX package's
+# own dim-3 budget (tests/test_comb_batch.py:82-83: p99.9 <= 2 LSB, max <=
+# 16 LSB) and the flow within p99 0.01 px (tests/test_torch_optflow.py)
+COMB_P999, COMB_MAX, FLOW_P99 = 2, 16, 0.01
 
 
 def fail(msg: str):
@@ -57,20 +74,28 @@ def device_phase(torch):
 
 def build_phase():
     phase('2 build')
+    from ld_decode_tpu_torch.ops import cuda_gather as CG
     from ld_decode_tpu_torch.tbc import cuda_resample as CR
     from ld_decode_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
-    CR._lib()
-    info = cuda_build.BUILDS['resample_lines']
-    print(f'resample_lines.cu: built in {info.seconds:.2f} s '
-          f'(load {time.perf_counter() - t0:.2f} s) -> {info.path}')
-    for line in info.log.splitlines():
-        if 'registers' in line or 'spill' in line:
-            print('  ptxas:', line.strip())
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        for f in [ex.submit(CR._lib), ex.submit(CG._lib)]:
+            f.result()
+    print(f'both kernels loaded in {time.perf_counter() - t0:.2f} s')
+    for name in ('resample_lines', 'take_along_axis'):
+        info = cuda_build.BUILDS[name]
+        print(f'{name}.cu: nvcc {info.seconds:.2f} s -> {info.path}')
+        for line in info.log.splitlines():
+            if 'registers' in line or 'spill' in line:
+                print('  ptxas:', line.strip())
 
 
-def _event_ms(torch, fn, reps: int = 20):
-    """Median per-call device time of fn() over `reps` timed calls."""
+def _times(torch, fn, reps: int = 20):
+    """(device ms, call ms) of one fn() call.  Device: `reps` calls
+    captured in a CUDA graph and replayed between two events, so the
+    host's launch overhead is out of the measure (median of 5 replays).
+    Call: the median of `reps` single calls between two events, host
+    enqueue included -- what one eager call costs the path."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -83,11 +108,29 @@ def _event_ms(torch, fn, reps: int = 20):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    dev = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        dev.append(a.elapsed_time(b) / reps)
+    del g
+    return statistics.median(dev), statistics.median(times)
 
 
 def kernel_phase(torch, np):
-    phase('3 kernel vs plain on the card')
+    phase('3 kernels vs plain on the card')
+    return {'K1': k1_cases(torch, np), 'K2': k2_cases(torch, np)}
+
+
+def k1_cases(torch, np):
     from ld_decode_tpu_torch.tbc import cuda_resample as CR
     rng = np.random.default_rng(RNG_SEED)
     cases = [
@@ -115,21 +158,105 @@ def kernel_phase(torch, np):
         d = (got - ref).abs()
         dmax, dmean = float(d.max()), float(d.mean())
         exact = bool(torch.equal(got, ref))
-        ms = _event_ms(torch, lambda: CR.resample_lines_batch(*args, **kw))
-        plain_ms = _event_ms(
+        ms, call_ms = _times(
+            torch, lambda: CR.resample_lines_batch(*args, **kw))
+        plain_ms, _ = _times(
             torch, lambda: CR.resample_lines_batch_plain(*args, **kw))
-        print(f'{name}: out {tuple(got.shape)} max|d| {dmax:.3e} '
+        # bytes the call must move: the demod samples under the output
+        # columns of each line (with the 4 taps), the line tables, the
+        # output once
+        steplen = (lli[:, 1:nlines + 1] - lli[:, :nlines]).double()
+        ncol = got.shape[-1]
+        span = float((steplen * ncol / W + 4).sum())
+        nbytes = int(4 * (span + 2 * lli.numel() + got.numel()))
+        flops = 30 * got.numel()         # weights, 4 taps, wow scale
+        bound_ms, bound_by = _bound(nbytes, flops)
+        print(f'K1 {name}: out {tuple(got.shape)} max|d| {dmax:.3e} '
               f'mean|d| {dmean:.3e} bit-equal {exact} kernel {ms:.4f} ms '
-              f'plain {plain_ms:.4f} ms')
+              f'(one eager call {call_ms:.4f} ms) plain {plain_ms:.4f} ms '
+              f'bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, '
+              f'{bound_by})')
         if not (dmax < K1_TOL_MAX and dmean < K1_TOL_MEAN):
             fail(f'{name}: kernel disagrees with the plain version '
                  f'(max {dmax}, mean {dmean})')
-        results[name] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms)
+        results[name] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None)
+    return results
+
+
+def _bound(nbytes: int, flops: int):
+    """Least time for the work on this card: bytes at the memory rate or
+    operations at the float32 rate, whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / F32_FLOP_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def k2_cases(torch, np):
+    """K2 at the probe's shapes (scripts/probe_warp.py:112-116) and at the
+    Farneback warp's three pyramid levels: rows of 20 gathered on axis 0
+    with one index per row broadcast (stride 0), indices from a flow of
+    sd 2 px as the warp computes them."""
+    from ld_decode_tpu_torch.ops import cuda_gather as CG
+    from ld_decode_tpu_torch.ops import gather as G
+    rng = np.random.default_rng(RNG_SEED + 2)
+    cases = [(f'probe {shape} axis {axis}', shape, axis)
+             for shape, axis in (((8, 128), 1), ((64, 128), 1),
+                                 ((256, 128), 1), ((8, 128), 0),
+                                 ((128, 128), 0), ((512, 512), 1))]
+    cases += [(f'warp level {h}x{w}', (h, w), 'warp')
+              for h, w in ((252, 840), (126, 420), (63, 210))]
+    results = {}
+    for name, shape, axis in cases:
+        if axis == 'warp':
+            h, w = shape
+            yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+            fx = np.clip(xx + rng.normal(0, 2, (h, w)), 0, w - 1.001)
+            fy = np.clip(yy + rng.normal(0, 2, (h, w)), 0, h - 1.001)
+            rows = (np.floor(fy).astype(np.int32) * w
+                    + np.floor(fx).astype(np.int32)).reshape(-1, 1)
+            op = torch.from_numpy(rng.standard_normal(
+                (h * w, 20), dtype=np.float32)).cuda()
+            idx = torch.from_numpy(rows).cuda().expand(h * w, 20)
+            axis, idx_bytes = 0, 4 * h * w
+        else:
+            op = torch.from_numpy(rng.standard_normal(
+                shape, dtype=np.float32)).cuda()
+            idx = torch.from_numpy(rng.integers(
+                0, min(shape[axis], 128), shape).astype(np.int32)).cuda()
+            idx_bytes = 4 * idx.numel()
+        got = CG.take_along_axis(op, idx, axis)
+        ref = G.take_along_axis_plain(op, idx, axis)
+        lib = torch.take_along_dim(op, idx.long(), axis)
+        torch.cuda.synchronize()
+        dmax = float((got - ref).abs().max())
+        exact, lib_exact = bool(torch.equal(got, ref)), bool(
+            torch.equal(got, lib))
+        ms, call_ms = _times(
+            torch, lambda: CG.take_along_axis(op, idx, axis))
+        plain_ms, _ = _times(
+            torch, lambda: G.take_along_axis_plain(op, idx, axis))
+        lidx = idx.long()
+        library_ms, _ = _times(
+            torch, lambda: torch.take_along_dim(op, lidx, axis))
+        nbytes = 4 * op.numel() + idx_bytes + 4 * got.numel()
+        bound_ms, bound_by = _bound(nbytes, 0)
+        print(f'K2 {name}: out {tuple(got.shape)} bit-equal to plain '
+              f'{exact}, to take_along_dim {lib_exact}; kernel {ms:.4f} ms '
+              f'(one eager call {call_ms:.4f} ms) plain {plain_ms:.4f} ms '
+              f'take_along_dim {library_ms:.4f} ms bound {bound_ms:.4f} ms '
+              f'({nbytes / 1e6:.2f} MB)')
+        if not (exact and lib_exact):
+            fail(f'K2 {name}: kernel is not bit-equal (max|d| {dmax})')
+        results[name] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms)
     return results
 
 
 def main_path_phase(torch, np):
-    phase('4 main path')
+    phase('4 decode path')
     from ld_decode_tpu_torch.models import encode as E
     from ld_decode_tpu_torch.utils.params import DecoderConfig
     from ld_decode_tpu_torch.ops import filters as F
@@ -281,6 +408,163 @@ def cli_phase(np, cap, cfg):
             fail(f'.tbc {tbc} bytes (want {8 * 525 * 910 * 2}), .pcm {pcm}')
 
 
+def chain_phase(torch, np, cfg, cap, bank):
+    phase('7 chain path')
+    from collections import deque
+    from ld_decode_tpu_torch.audio.cx import CXExpander
+    from ld_decode_tpu_torch.comb.batch import NTSCCombBatch
+    from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig
+    from ld_decode_tpu_torch.ops import cuda_gather as CG
+    from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    from ld_decode_tpu_torch.tbc import framer as FR
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=52,
+                   device='cuda', fetch_picture=False)
+    comb = NTSCCombBatch(CombConfig(dim=3), device='cuda')
+    cx = CXExpander()
+    pending, buf, rgbs, words, dev_frames = deque(), [], [], [], []
+    nframes, naudio = 0, 0
+
+    def flush(drain=False):
+        if buf:
+            h = comb.feed(torch.stack([
+                x if isinstance(x, torch.Tensor)
+                else torch.from_numpy(x.astype(np.int32)).cuda()
+                for x in buf]))
+            if h is not None:
+                pending.append(h)
+            buf.clear()
+        while len(pending) > (0 if drain else 3):
+            r, w = comb.collect(pending.popleft())
+            rgbs.extend(r)
+            words.extend(w)
+
+    CR.resample_lines_batch.launches = 0
+    CG.take_along_axis.launches = 0
+    t0 = time.perf_counter()
+    sample = 33046
+    for i in range(24):
+        rv = fr.readframe(None, sample, i == 0)
+        if rv[0] is None:
+            break
+        frame = rv[0].reshape(525, 910)
+        if isinstance(frame, torch.Tensor) and len(dev_frames) < 4:
+            dev_frames.append(frame.clone())
+        buf.append(frame)
+        nframes += 1
+        if len(buf) >= 8:
+            flush()
+        if rv[1] is not None:
+            naudio += cx.process(np.asarray(rv[1]).ravel()).size
+        sample = rv[2]
+    flush(drain=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1, k2 = CR.resample_lines_batch.launches, CG.take_along_axis.launches
+    st = fr.prefetcher.stats
+    spf = cfg.freq_hz / cfg.sys.fps
+    cav = [(int(w[14]) << 16) | int(w[15]) for w in words]
+    print(f'chain: {nframes} frames decoded, {len(rgbs)} RGB frames '
+          f'emitted in {dt:.3f} s: {len(rgbs) / dt:.2f} RGB frames/s, '
+          f'{nframes * spf / dt / 1e6:.2f} MSa/s of capture; '
+          f'{naudio} CX audio samples')
+    print(f'CAV frame numbers of the emitted frames {cav[0]}..{cav[-1]}')
+    print(f'peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}'
+          f' MiB')
+    print('comb stats', json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v)
+         for k, v in comb.stats.items()}))
+    if len(rgbs) < 16 or len(rgbs) != nframes - 2:
+        fail(f'{len(rgbs)} RGB frames from {nframes} (want nframes - 2 '
+             f'>= 16: frame 0 never emits, one stays pending)')
+    if any(r.shape != (480, 744, 3) or r.dtype != np.uint16 for r in rgbs):
+        fail('an RGB frame is not (480, 744, 3) uint16')
+    if any(b != a + 1 for a, b in zip(cav, cav[1:])) or not cav[0]:
+        fail(f'CAV frame numbers not consecutive: {cav}')
+    expect1 = 3 * (st['batches'] + st['seq_decoded'])
+    print(f'K1 launches {k1} (3 per batch x {st["batches"]} + 3 per '
+          f'sequential field x {st["seq_decoded"]}); K2 launches {k2} '
+          f'(18 per RGB frame: 3 warps x 3 levels x 2 fields)')
+    if k1 != expect1 or k1 == 0:
+        fail(f'K1 launches {k1}, expected {expect1}')
+    if k2 != 18 * len(rgbs):
+        fail(f'K2 launches {k2}, expected {18 * len(rgbs)}')
+    if not naudio:
+        fail('no CX audio')
+    return k1, k2, dev_frames
+
+
+def comb_parity_phase(torch, np, dev_frames):
+    phase('8 comb: card vs cpu, one window')
+    from scipy.ndimage import gaussian_filter
+    from ld_decode_tpu_torch.comb.batch import NTSCCombBatch
+    from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig
+    if len(dev_frames) < 4:
+        fail(f'only {len(dev_frames)} device frames from the chain')
+    rng = np.random.default_rng(RNG_SEED + 8)
+    tex = gaussian_filter(rng.normal(0, 1, (560, 960)), 2.0)
+    tex = tex / np.abs(tex).max() * 4000
+    frames = torch.stack(dev_frames)
+    for k in range(4):
+        t = np.roll(tex, (k // 2, k), axis=(0, 1))[20:525, 60:910]
+        frames[k, 20:, 60:] = (frames[k, 20:, 60:] + torch.from_numpy(
+            t.astype(np.int32)).cuda()).clamp(0, 65535)
+    outs = {}
+    for dev in ('cuda', 'cpu'):
+        comb = NTSCCombBatch(CombConfig(dim=3), device=dev)
+        t0 = time.perf_counter()
+        r, w = comb.collect(comb.feed(frames.to(dev)))
+        outs[dev] = (r, w, comb._flow.cpu().numpy(),
+                     time.perf_counter() - t0)
+    (rg, wg, fg, tg), (rc, wc, fc, tc) = outs['cuda'], outs['cpu']
+    if len(rg) != len(rc) or len(rg) != 2:
+        fail(f'emissions: cuda {len(rg)}, cpu {len(rc)} (want 2)')
+    if not all(np.array_equal(a, b) for a, b in zip(wg, wc)):
+        fail('line-0 words differ')
+    df = np.abs(fg - fc)
+    print(f'window of 4: cuda {tg:.3f} s, cpu {tc:.3f} s; flow |d| median '
+          f'{np.median(df):.3e} p99 {np.percentile(df, 99):.3e} max '
+          f'{df.max():.3e} px')
+    for k, (a, b) in enumerate(zip(rg, rc)):
+        d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+        frac2, p999 = float((d > 2).mean()), float(np.percentile(d, 99.9))
+        print(f'RGB frame {k}: |d| > 2 LSB on {frac2:.5f} of values, '
+              f'p99.9 {p999} max {int(d.max())} LSB')
+        if p999 > COMB_P999 or d.max() > COMB_MAX:
+            fail(f'comb card vs cpu outside the budgets (p99.9 {COMB_P999}, '
+                 f'max {COMB_MAX} LSB)')
+    if np.percentile(df, 99) > FLOW_P99:
+        fail(f'flow card vs cpu: p99 {np.percentile(df, 99)} px')
+
+
+def chain_cli_phase(np, cap, cfg):
+    phase('9 chain cli')
+    spf = int(cfg.freq_hz / cfg.sys.fps) + 1
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        path = os.path.join(d, 'cap.r16')
+        (cap[:10 * spf].astype(np.int32) - 32768).astype('<i2').tofile(path)
+        out = os.path.join(d, 'out')
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable,
+                               os.path.join(ROOT, 'ldchain_torch.py'),
+                               path, out, '-l', '6', '--raw', '-q'],
+                              capture_output=True, text=True, cwd=ROOT,
+                              timeout=600)
+        dt = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f'ldchain_torch.py exit {proc.returncode}:\n'
+                 f'{proc.stderr[-3000:]}')
+        rgb = os.path.getsize(out + '.rgb')
+        pcm = os.path.getsize(out + '.audio.pcm')
+        print(f'ldchain_torch.py -l 6: {dt:.1f} s, .rgb {rgb} bytes, '
+              f'.audio.pcm {pcm} bytes')
+        if rgb != 6 * 480 * 744 * 3 * 2 or pcm <= 0:
+            fail(f'.rgb {rgb} bytes (want {6 * 480 * 744 * 3 * 2}), '
+                 f'.audio.pcm {pcm}')
+
+
 def main():
     try:
         import numpy as np
@@ -305,16 +589,23 @@ def main():
     cfg, cap, bank, fr, launches = main_path_phase(torch, np)
     parity_phase(torch, np, cfg, cap, bank, fr)
     cli_phase(np, cap, cfg)
+    del fr
+    k1, k2, dev_frames = chain_phase(torch, np, cfg, cap, bank)
+    comb_parity_phase(torch, np, dev_frames)
+    chain_cli_phase(np, cap, cfg)
     if 'jax' in sys.modules:
         fail('jax was imported')
 
-    pic = kres['ntsc picture']
-    print(json.dumps({'kernels': [{
-        'name': 'resample_lines_batch', 'route': 'cuda',
-        'source': 'ld_decode_tpu_torch/csrc/resample_lines.cu',
-        'replaces': 'ld_decode_tpu/tbc/pallas_resample.py:205',
-        'launches': launches, 'max_abs_err': pic['max_abs_err'],
-        'ms': pic['ms'], 'plain_ms': pic['plain_ms']}]}))
+    print(f'decode path K1 launches {launches}; chain path K1 {k1}, K2 {k2}')
+    k1r, k2r = kres['K1']['ntsc picture'], kres['K2']['warp level 252x840']
+    print(json.dumps({'kernels': [
+        dict(name='resample_lines_batch', route='cuda',
+             source='ld_decode_tpu_torch/csrc/resample_lines.cu',
+             replaces='ld_decode_tpu/tbc/pallas_resample.py:205',
+             launches=k1, **k1r),
+        dict(name='take_along_axis', route='cuda',
+             source='ld_decode_tpu_torch/csrc/take_along_axis.cu',
+             replaces='scripts/probe_warp.py:118', launches=k2, **k2r)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

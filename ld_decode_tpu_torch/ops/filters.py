@@ -17,6 +17,8 @@ import scipy.signal as sps
 import torch
 from torch import nn
 
+from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
+from ld_decode_tpu_torch.utils.device import resolve as resolve_device
 from ld_decode_tpu_torch.utils.params import DecoderConfig
 
 TAU = 2 * np.pi
@@ -272,8 +274,9 @@ class DemodBank(nn.Module):
 
     def __init__(self, arrays: Dict[str, Optional[np.ndarray]],
                  static: Dict[str, object], dtype=torch.complex64,
-                 device=None):
+                 device=DEFAULT_DEVICE):
         super().__init__()
+        device = resolve_device(device)
         for name in FILTER_NAMES:
             a = arrays.get(name)
             t = None if a is None else torch.as_tensor(
@@ -297,7 +300,7 @@ class DemodBank(nn.Module):
 
 
 def build_demod_bank(bank: FilterBank, cfg: DecoderConfig,
-                     dtype=np.complex64, device=None) -> DemodBank:
+                     dtype=np.complex64, device=DEFAULT_DEVICE) -> DemodBank:
     """Derive the device-side one-sided bank from the host design bank."""
     v = bank.video
     n = cfg.blocklen
@@ -336,12 +339,13 @@ def build_demod_bank(bank: FilterBank, cfg: DecoderConfig,
 
 
 def make_demod_bank(cfg: DecoderConfig, dtype=np.complex64,
-                    device=None) -> DemodBank:
+                    device=DEFAULT_DEVICE) -> DemodBank:
     return build_demod_bank(design_filter_bank(cfg), cfg, dtype, device)
 
 
 def bank_from_numpy(arrays: Dict[str, Optional[np.ndarray]],
-                    static: Dict[str, object], device=None) -> DemodBank:
+                    static: Dict[str, object],
+                    device=DEFAULT_DEVICE) -> DemodBank:
     """A bank from another implementation's filter arrays (numpy).
 
     `arrays` maps each name of FILTER_NAMES to a complex array, or to a

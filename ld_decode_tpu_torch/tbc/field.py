@@ -18,6 +18,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
+from ld_decode_tpu_torch.utils.device import resolve as resolve_device
 from ld_decode_tpu_torch.utils.params import DecoderConfig
 from ld_decode_tpu_torch.vbi.philips import decode_philips_line, interpret_philips
 from ld_decode_tpu_torch.ops import demod as D
@@ -47,6 +49,10 @@ class FieldResult:
     # white flag computed on the device by the batched pipeline (None on
     # the sequential path: the host computes it from dspicture)
     white_flag: Optional[bool] = None
+    # chain mode (FieldPrefetcher(fetch_picture=False)): the picture stays
+    # on the device as (batch pictures (B, max_lc, W) int32, index) and
+    # dspicture is None
+    dev_picture: Optional[tuple] = None
 
 
 def hsync_stats(vals: np.ndarray) -> Tuple[float, float]:
@@ -63,7 +69,7 @@ class FieldDecoder:
     """Decodes one field per call from a device-resident capture."""
 
     def __init__(self, cfg: DecoderConfig, bank: DemodBank,
-                 nblocks: int = 66, device=None):
+                 nblocks: int = 66, device=DEFAULT_DEVICE):
         FU.require_ntsc(cfg)
         need_lines = cfg.sys.field_lines + 0.5 + 21
         window_lines = nblocks * cfg.block_keep / cfg.linelen_float
@@ -74,8 +80,7 @@ class FieldDecoder:
                 f'(use nblocks >= '
                 f'{int(np.ceil(need_lines * cfg.linelen_float / cfg.block_keep))})')
         self.cfg = cfg
-        self.device = torch.device(device) if device is not None \
-            else bank.device
+        self.device = resolve_device(device)
         self.bank = bank.to(self.device)
         self.nblocks = nblocks
         self.inlinelen = cfg.linelen

@@ -14,6 +14,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
+from ld_decode_tpu_torch.utils.device import resolve as resolve_device
 from ld_decode_tpu_torch.utils.params import DecoderConfig
 from ld_decode_tpu_torch.ops import demod as D
 from ld_decode_tpu_torch.ops.filters import DemodBank
@@ -36,26 +38,48 @@ def to_device_capture(samples: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(arr.astype(np.float32)).to(device)
 
 
+def weave_device(pa: torch.Tensor, ia: int, pb: torch.Tensor, ib: int,
+                 half: int, lf_sel: int, tail_ok: bool,
+                 outlines: int) -> torch.Tensor:
+    """Interlace weave on the device (the semantics of the host weave in
+    Framer.formatoutput).  pa/pb: (batch, max_lc, W) int32 batch pictures
+    and ia/ib the two fields' indices in them (a pair may straddle two
+    batches).  The row indices come from host ints, so nothing waits for
+    the device.  Returns the (outlines * W,) int32 frame."""
+    L = pa.shape[1]
+    dev = pa.device
+    fld = torch.stack([pa[ia], pb[ib]])                  # (2, L, W)
+    r = torch.arange(outlines, device=dev)
+    is_main = r < 2 * half
+    fidx = torch.where(is_main, r & 1, lf_sel)
+    lidx = torch.where(is_main, r >> 1, half).clamp(max=L - 1)
+    ok = is_main | ((r == 2 * half) & tail_ok)
+    out = torch.where(ok[:, None], fld[fidx, lidx], 0)
+    return out.reshape(-1)
+
+
 class Framer:
     def __init__(self, cfg: DecoderConfig, bank: DemodBank,
                  loader: Callable = None, nblocks: int = 66,
                  capture: np.ndarray = None, batch: int = 8,
                  despackle: bool = False, segment_samples: int = 0,
                  rot_level: float = 40.0, flip_fields: bool = False,
-                 bff: bool = False, device=None):
+                 bff: bool = False, device=DEFAULT_DEVICE,
+                 fetch_picture: bool = True):
         """Either `loader` (file reads into a sliding device-resident
         segment of `segment_samples`) or `capture` (the whole capture kept
         on the device) must be given.  Batches of `batch` speculative
         fields run through the device pipeline; the audio carry advances
-        per field."""
+        per field.  fetch_picture=False is the chain mode: the fields'
+        pictures stay on the device and readframe returns the woven frame
+        as a device tensor (int32) for the comb."""
         FU.require_ntsc(cfg)
         if batch <= 1:
             raise NotImplementedError(BATCH1_TODO)
         if (loader is None) == (capture is None):
             raise ValueError('give exactly one of loader= and capture=')
         self.cfg = cfg
-        self.device = torch.device(device if device is not None
-                                   else bank.device)
+        self.device = resolve_device(device)
         self.bank = bank.to(self.device)
         self.loader = loader
         self.despackle = despackle
@@ -68,7 +92,8 @@ class Framer:
         capture_dev = None
         if capture is not None:
             capture_dev = to_device_capture(capture, self.device)
-        self.prefetcher = FieldPrefetcher(self.decoder, capture_dev, batch)
+        self.prefetcher = FieldPrefetcher(self.decoder, capture_dev, batch,
+                                          fetch_picture=fetch_picture)
         self._seg_samples = 0
         if capture_dev is None:
             if segment_samples <= 0:
@@ -162,8 +187,30 @@ class Framer:
                                  + merged['clvframe'])
         return merged
 
-    def formatoutput(self, fields) -> np.ndarray:
-        """Interlace weave incl. the visible half-line."""
+    def formatoutput(self, fields):
+        """Interlace weave incl. the visible half-line.  In chain mode both
+        fields live on the device and so does the weave (an int32 tensor);
+        otherwise a uint16 numpy frame."""
+        if all(f.dspicture is None and f.dev_picture is not None
+               for f in fields):
+            top, bot = ((fields[1], fields[0]) if self.flip_fields
+                        else fields)
+            half = min(fields[0].linecount, fields[1].linecount)
+            lf = int(np.argmax([fields[0].linecount, fields[1].linecount]))
+            tail_ok = (half + 1) <= fields[lf].linecount
+            lf_sel = (1 - lf) if self.flip_fields else lf
+            pa, ia = top.dev_picture
+            pb, ib = bot.dev_picture
+            return weave_device(pa, ia, pb, ib, half, lf_sel, tail_ok,
+                                self.outlines)
+        for f in fields:
+            if f.dspicture is None and f.dev_picture is not None:
+                # mixed pair (one field came from the sequential fallback):
+                # materialize the device one
+                pics, i = f.dev_picture
+                f.dspicture = pics[i].reshape(-1)[
+                    :f.linecount * self.outwidth].cpu().numpy().astype(
+                        np.uint16)
         W = self.outwidth
         half = min(fields[0].linecount, fields[1].linecount)
         linecount = half * 2
@@ -214,6 +261,9 @@ class Framer:
             conaudio = None
 
         combined = self.formatoutput(fields)
+        if self.despackle and isinstance(combined, torch.Tensor):
+            # despackle is a host numpy pass
+            combined = combined.cpu().numpy().astype(np.uint16)
         if self.despackle:
             # rot concealment post-pass (reference tbc.cpp:1528-1565)
             from ld_decode_tpu_torch.tbc.despackle import despackle as _dsp
@@ -226,7 +276,12 @@ class Framer:
 
         # full line-0 metadata words (ld-decoder.h:227-252 spec)
         from ld_decode_tpu_torch.vbi.metadata import frame_metadata_words
-        combined[:16] = frame_metadata_words(fields, self.vbi, cfg)
+        words = frame_metadata_words(fields, self.vbi, cfg)
+        if isinstance(combined, torch.Tensor):
+            combined[:16] = torch.from_numpy(
+                np.asarray(words, np.int32)).to(combined.device)
+        else:
+            combined[:16] = words
 
         # MTF compensation feedback: the CAV frame number drives the RF
         # equalizer level; a large change forces a re-decode

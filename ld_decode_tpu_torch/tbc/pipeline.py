@@ -1,5 +1,6 @@
 """Speculative field-batch prefetcher (torch port of
-ld_decode_tpu/tbc/pipeline.py, raw-picture mode).
+ld_decode_tpu/tbc/pipeline.py: the raw-picture mode, and the chain mode
+in which the picture stays on the device).
 
 Each batch of `batch` predicted field windows is decoded by one call of
 `fused.field_pipeline_batch`.  The call takes its (start0, audio_offset0)
@@ -32,6 +33,7 @@ from ld_decode_tpu_torch.vbi.philips import interpret_philips
 from ld_decode_tpu_torch.ops import demod as D
 from ld_decode_tpu_torch.tbc import fused as FU
 from ld_decode_tpu_torch.tbc.field import FieldDecoder, FieldResult
+from ld_decode_tpu_torch.utils.device import to_host_async
 
 
 @dataclass
@@ -47,21 +49,13 @@ class _InFlight:
     card), the chained device scalars and the mtf level it ran at."""
 
     def __init__(self, out: Dict[str, torch.Tensor], next_start0,
-                 next_offset0, mtf_level: float):
+                 next_offset0, mtf_level: float, fetch_picture: bool = True):
         self.next_start0 = next_start0
         self.next_offset0 = next_offset0
         self.mtf_level = mtf_level
-        self.event = None
-        if out['picture'].device.type == 'cuda':
-            host = {}
-            for k, v in out.items():
-                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                h.copy_(v, non_blocking=True)
-                host[k] = h
-            self.event = torch.cuda.Event()
-            self.event.record()
-            out = host
-        self.out = out
+        # chain mode: the batch picture stays where it was computed
+        self.picture_dev = None if fetch_picture else out.pop('picture')
+        self.out, self.event = to_host_async(out)
 
     def numpy(self) -> Dict[str, np.ndarray]:
         if self.event is not None:
@@ -75,8 +69,12 @@ class FieldPrefetcher:
     DEPTH = 3
 
     def __init__(self, decoder: FieldDecoder, capture: torch.Tensor,
-                 batch: int = 8):
+                 batch: int = 8, fetch_picture: bool = True):
+        """fetch_picture=False is the chain mode: each FieldResult carries
+        its picture as `dev_picture` (the batch tensor and its index) and
+        no picture is copied to the host."""
         self.decoder = decoder
+        self.fetch_picture = fetch_picture
         self.capture = capture
         # absolute file sample of capture[0]: public positions are
         # absolute, device windows capture-relative (nonzero in segmented
@@ -146,7 +144,8 @@ class FieldPrefetcher:
             dec.cfg, dec.nblocks, n_audio1, self.batch, self.field_pitch,
             colorlevel=dec.colorlevel, colorphase=dec.colorphase,
             valid_len=self.valid_len)
-        self._flight.append(_InFlight(out, nso, noo, mtf_level))
+        self._flight.append(_InFlight(out, nso, noo, mtf_level,
+                                      self.fetch_picture))
         self.stats['batches'] += 1
         self.stats['t_dispatch'] += time.perf_counter() - t0
 
@@ -194,8 +193,11 @@ class FieldPrefetcher:
                 nout = (int(data['audio_count'][b]) - 1) * 2
                 r.dsaudio = data['audio'][b][:nout]
             r.audio_next_offset = float(data['audio_next_offset'][b])
-            r.dspicture = data['picture'][b].reshape(-1)[:lc * W].astype(
-                np.uint16)
+            if fl.picture_dev is None:
+                r.dspicture = data['picture'][b].reshape(-1)[:lc * W].astype(
+                    np.uint16)
+            else:
+                r.dev_picture = (fl.picture_dev, b)
             out.append(_Entry(rs_abs, r, fl.mtf_level,
                               float(data['meta_f'][b])))
         if not clean and self._flight:

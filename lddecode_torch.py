@@ -3,8 +3,9 @@
 (4fsc 16-bit frames) + <out>.pcm (16-bit 48 kHz stereo).
 
 Same arguments as lddecode_tpu.py, minus --pic-mode (a transfer mode of
-the JAX package).  Decodes on the first CUDA device when there is one, else
-on the CPU.  NTSC with batch > 1 only: PAL (-p), --batch 1 and the EFM
+the JAX package), plus --device.  Decodes on the CUDA device (--device,
+default `cuda`); without one it fails unless `--device cpu` asks for the
+CPU.  NTSC with batch > 1 only: PAL (-p), --batch 1 and the EFM
 digital-audio decode (--efm) raise NotImplementedError naming their
 ROADMAP.md item.
 """
@@ -65,6 +66,9 @@ def parse_args(argv=None):
                    help='output only audio (no .tbc file)')
     p.add_argument('--efm', action='store_true',
                    help='EFM digital-audio decode (not ported yet)')
+    p.add_argument('--device', default='cuda',
+                   help='torch device to decode on (default cuda; pass '
+                        '"--device cpu" to run on the CPU)')
     p.add_argument('-q', '--quiet', action='store_true',
                    help='warnings and errors only')
     p.add_argument('-d', '--debug', action='store_true',
@@ -88,13 +92,13 @@ def main(argv=None):
     if args.efm:
         raise NotImplementedError(EFM_TODO)
 
-    import torch
     from ld_decode_tpu_torch.io import loaders as L
+    from ld_decode_tpu_torch.utils.device import resolve
     from ld_decode_tpu_torch.utils.params import DecoderConfig
     from ld_decode_tpu_torch.ops import filters as F
     from ld_decode_tpu_torch.tbc import framer as FR
 
-    device = 'cuda' if torch.cuda.is_available() else 'cpu'
+    device = resolve(args.device, hint='--device cpu')
     cfg = DecoderConfig(system='NTSC', freq_mhz=40.0)
     bank = F.make_demod_bank(
         cfg, dtype=np.complex128 if args.f64 else np.complex64,

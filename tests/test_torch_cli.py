@@ -33,8 +33,8 @@ def _run_both(r16, tmp_path, flags):
     with jax.enable_x64(False):
         assert lddecode_tpu.main([str(r16), out_j, '--pic-mode', 'raw',
                                   '--batch', '6', '-q'] + flags) == 0
-    assert lddecode_torch.main([str(r16), out_t, '--batch', '6', '-q']
-                               + flags) == 0
+    assert lddecode_torch.main([str(r16), out_t, '--batch', '6', '-q',
+                                '--device', 'cpu'] + flags) == 0
     res = []
     for o in (out_j, out_t):
         tbc = np.fromfile(o + '.tbc', '<u2')
@@ -72,3 +72,13 @@ def test_cli_unported_modes_raise(r16, tmp_path):
         lddecode_torch.main([str(r16), str(tmp_path / 'o'), '--batch', '1'])
     with pytest.raises(NotImplementedError, match='EFM'):
         lddecode_torch.main([str(r16), str(tmp_path / 'o'), '--efm'])
+
+
+def test_cli_defaults_to_the_card(r16, tmp_path):
+    """No silent CPU fallback: without a CUDA device the CLI fails, naming
+    the flag that asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default would run')
+    with pytest.raises(RuntimeError, match='--device cpu'):
+        lddecode_torch.main([str(r16), str(tmp_path / 'o'), '-q'])
+    assert not (tmp_path / 'o.tbc').exists()

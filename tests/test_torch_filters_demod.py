@@ -63,7 +63,7 @@ def test_bank_bit_exact(cfg, tcfg, dtype):
     """The port's design + one-sided bank equals the JAX bank bit for bit."""
     with jax.enable_x64(dtype == np.complex128):
         arrays, static = _jax_leaves(JF.make_demod_bank(cfg, dtype))
-    tbank = TF.make_demod_bank(tcfg, dtype)
+    tbank = TF.make_demod_bank(tcfg, dtype, device='cpu')
     _assert_bank_equal(tbank, arrays)
     for n in TF.STATIC_NAMES:
         assert getattr(tbank, n) == static[n], n
@@ -74,9 +74,9 @@ def test_bank_from_numpy(cfg, tcfg, dtype):
     """bank_from_numpy turns the JAX bank's leaves into the port's bank."""
     with jax.enable_x64(dtype == np.complex128):
         arrays, static = _jax_leaves(JF.make_demod_bank(cfg, dtype))
-    tbank = TF.bank_from_numpy(arrays, static)
+    tbank = TF.bank_from_numpy(arrays, static, device='cpu')
     _assert_bank_equal(tbank, arrays)
-    ref = TF.make_demod_bank(tcfg, dtype)
+    ref = TF.make_demod_bank(tcfg, dtype, device='cpu')
     for n in TF.FILTER_NAMES:
         a, b = getattr(tbank, n), getattr(ref, n)
         assert (a is None) == (b is None), n
@@ -95,7 +95,7 @@ def test_demod_stream_matches_jax(cfg, tcfg, capture, dtype, mtf_level):
                                  jnp.asarray(mtf_level, rdt))
         jv = {k: np.asarray(v) for k, v in jv.items()}
         ja = {k: np.asarray(v) for k, v in ja.items()}
-    tbank = TF.make_demod_bank(tcfg, dtype)
+    tbank = TF.make_demod_bank(tcfg, dtype, device='cpu')
     tv, ta = TD.demod_stream(
         torch.from_numpy(capture.astype(np.float64 if wide else np.float32)),
         tbank, tcfg, NBLOCKS, mtf_level)
@@ -109,7 +109,7 @@ def test_demod_stream_matches_jax(cfg, tcfg, capture, dtype, mtf_level):
 
 
 def test_demod_stream_rejects_wrong_length(tcfg, capture):
-    tbank = TF.make_demod_bank(tcfg)
+    tbank = TF.make_demod_bank(tcfg, device='cpu')
     with pytest.raises(ValueError, match='need exactly'):
         TD.demod_stream(torch.from_numpy(capture[:-1].astype(np.float32)),
                         tbank, tcfg, NBLOCKS, 1.0)

@@ -11,6 +11,7 @@ from ld_decode_tpu.ops import filters as JF
 from ld_decode_tpu.tbc import framer as JFR
 from ld_decode_tpu.utils.params import DecoderConfig
 from ld_decode_tpu_torch.ops import filters as TF
+from ld_decode_tpu_torch.tbc import field as TFD
 from ld_decode_tpu_torch.tbc import framer as TFR
 from ld_decode_tpu_torch.utils.params import DecoderConfig as TConfig
 
@@ -40,7 +41,8 @@ def pair():
                         capture=cap, batch=6, pic_mode='raw')
         jframes = _frames(jf)
     tcfg = TConfig(system='NTSC', freq_mhz=40.0)
-    tf = TFR.Framer(tcfg, TF.make_demod_bank(tcfg, np.complex64),
+    tf = TFR.Framer(tcfg,
+                    TF.make_demod_bank(tcfg, np.complex64, device='cpu'),
                     capture=cap, batch=6, device='cpu')
     tframes = _frames(tf)
     return jf, tf, jframes, tframes
@@ -82,10 +84,27 @@ def test_framer_audio(pair):
 
 def test_framer_rejects_unported_modes():
     tcfg = TConfig(system='NTSC')
-    bank = TF.make_demod_bank(tcfg)
+    bank = TF.make_demod_bank(tcfg, device='cpu')
     with pytest.raises(NotImplementedError, match='batch 1'):
-        TFR.Framer(tcfg, bank, capture=np.zeros(10, np.uint16), batch=1)
+        TFR.Framer(tcfg, bank, capture=np.zeros(10, np.uint16), batch=1,
+                   device='cpu')
     pcfg = TConfig(system='PAL')
     with pytest.raises(NotImplementedError, match='PAL'):
-        TFR.Framer(pcfg, TF.make_demod_bank(pcfg),
-                   capture=np.zeros(10, np.uint16), batch=8)
+        TFR.Framer(pcfg, TF.make_demod_bank(pcfg, device='cpu'),
+                   capture=np.zeros(10, np.uint16), batch=8,
+                   device='cpu')
+
+
+def test_entry_points_default_to_the_card():
+    """The bank, FieldDecoder and Framer run on the card unless the caller
+    asks for the CPU: without a CUDA device the defaults raise."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the defaults would run')
+    tcfg = TConfig(system='NTSC')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TF.make_demod_bank(tcfg)
+    bank = TF.make_demod_bank(tcfg, device='cpu')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TFR.Framer(tcfg, bank, capture=np.zeros(10, np.uint16), batch=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TFD.FieldDecoder(tcfg, bank)

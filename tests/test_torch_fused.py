@@ -93,7 +93,7 @@ def ref():
 @pytest.fixture(scope='module')
 def port_batch(ref):
     cfg = ref['tcfg']
-    bank = TF.make_demod_bank(cfg, np.complex64)
+    bank = TF.make_demod_bank(cfg, np.complex64, device='cpu')
     res, ns, no = TFU.field_pipeline_batch(
         torch.from_numpy(ref['cap'].astype(np.float32)), ref['rs0'], 0.0,
         1.0, bank, cfg, NBLOCKS, ref['n_audio1'], BATCH, ref['pitch'])
@@ -213,7 +213,8 @@ def test_audio_stage2_matches_jax(ref):
         want = [jax.vmap(lambda l, r: j_stage2(l, r, ref['jbank'], n))(
             jnp.asarray(a1['audio_left']), jnp.asarray(a1['audio_right']))]
         want = [np.asarray(w) for w in want[0]]
-    bank = TF.make_demod_bank(ref['tcfg'], np.complex64)
+    bank = TF.make_demod_bank(ref['tcfg'], np.complex64,
+                               device='cpu')
     got = audio_stage2(T(a1['audio_left']), T(a1['audio_right']), bank, n)
     for g, w in zip(got, want):
         g = g.numpy()

@@ -8,12 +8,18 @@ import types
 import numpy as np
 import pytest
 
+from ld_decode_tpu.audio import cx as JCX
+from ld_decode_tpu.comb.comb_ntsc import PulldownAssembler as JPulldown
+from ld_decode_tpu.io import export_sink as JS
 from ld_decode_tpu.io import loaders as JL
 from ld_decode_tpu.models import encode as JE
 from ld_decode_tpu.tbc.despackle import despackle as j_despackle
 from ld_decode_tpu.utils import params as JP
 from ld_decode_tpu.vbi import metadata as JM
 from ld_decode_tpu.vbi import philips as JPH
+from ld_decode_tpu_torch.audio import cx as TCX
+from ld_decode_tpu_torch.comb.comb_ntsc import PulldownAssembler as TPulldown
+from ld_decode_tpu_torch.io import export_sink as TS
 from ld_decode_tpu_torch.io import loaders as TL
 from ld_decode_tpu_torch.models import encode as TE
 from ld_decode_tpu_torch.tbc.despackle import despackle as t_despackle
@@ -112,3 +118,58 @@ def test_despackle_equal():
     np.testing.assert_array_equal(
         t_despackle(frame.copy(), 910, scale, 1024, -40.0),
         j_despackle(frame.copy(), 910, scale, 1024, -40.0))
+
+
+def test_video_sink_equal(tmp_path, monkeypatch):
+    """Raw rgb48 stream and per-frame images, written the same way."""
+    monkeypatch.setattr(TS.shutil, 'which', lambda *_: None)
+    monkeypatch.setattr(JS.shutil, 'which', lambda *_: None)
+    rng = np.random.default_rng(12)
+    frames = rng.integers(0, 65535, (3, 480, 744, 3)).astype(np.uint16)
+    for images in (False, True):
+        outs = []
+        for mod, name in ((TS, 't'), (JS, 'j')):
+            base = str(tmp_path / f'{name}{int(images)}')
+            sink = mod.VideoSink(base, 744, 480, '30000/1001',
+                                 force_raw=True, write_images=images)
+            for f in frames:
+                sink.write(f)
+            sink.close()
+            assert sink.nframes == 3
+            paths = ([f'{base}_{k}.rgb' for k in range(3)] if images
+                     else [base + '.rgb'])
+            outs.append(b''.join(open(p, 'rb').read() for p in paths))
+        assert outs[0] == outs[1] == frames.tobytes()
+
+
+def test_cx_host_parts_equal():
+    """Filters, the envelope host loop and the expander state chain."""
+    for a, b in zip(TCX.F500 + TCX.F40, JCX.F500 + JCX.F40):
+        np.testing.assert_array_equal(a, b)
+    rng = np.random.default_rng(13)
+    env = np.abs(rng.normal(0, 3000, 4000)) * (rng.random(4000) < 0.3)
+    for got, want in zip(TCX.envelope_followers(env, 10.0, 20.0),
+                         JCX.envelope_followers(env, 10.0, 20.0)):
+        np.testing.assert_array_equal(got, want)
+    pcm = rng.integers(-20000, 20000, 3204).astype(np.int16)
+    tx, jx = TCX.CXExpander(), JCX.CXExpander()
+    for chunk in (pcm, pcm[::-1].copy(), pcm.view(np.uint16)):
+        np.testing.assert_array_equal(tx.process(chunk), jx.process(chunk))
+    assert (tx.fast, tx.slow) == (jx.fast, jx.slow)
+
+
+def test_pulldown_assembler_equal():
+    """3:2 pulldown reassembly: CAV and white-flag parities, the redundant
+    (flagless) frames dropped, held odd frames merged."""
+    rng = np.random.default_rng(3)
+    flags = [0x4, 0x8, 0x0, 0x200, 0x100, 0x4, 0x0, 0x8, 0x4]
+    ja, ta = JPulldown(), TPulldown()
+    for k, fl in enumerate(flags):
+        rgb = rng.integers(0, 65535, (480, 744, 3)).astype(np.uint16)
+        words = np.zeros(16, np.uint16)
+        words[13], words[14], words[15] = fl, k >> 16, 900 + k
+        je, te = ja.process(rgb, words), ta.process(rgb, words)
+        assert len(je) == len(te)
+        for (jf, jc), (tf, tc) in zip(je, te):
+            assert jc == tc
+            np.testing.assert_array_equal(jf, tf)

@@ -14,15 +14,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = [os.path.join(d, f)
               for d, _, fs in os.walk(os.path.join(ROOT, 'ld_decode_tpu_torch'))
               for f in fs if f.endswith('.py')] \
-    + [os.path.join(ROOT, 'lddecode_torch.py'),
-       os.path.join(ROOT, 'chip_smoke.py')]
+    + [os.path.join(ROOT, f) for f in ('lddecode_torch.py',
+                                       'ldchain_torch.py', 'chip_smoke.py')]
 FORBIDDEN = re.compile(
     r'^\s*(import\s+jax\b|from\s+jax\b|import\s+ld_decode_tpu\b(?!_torch)'
     r'|from\s+ld_decode_tpu\b(?!_torch))', re.M)
 
 
 def test_port_sources_import_no_jax():
-    assert len(PORT_FILES) > 15
+    assert len(PORT_FILES) > 25
+    names = {os.path.relpath(p, ROOT) for p in PORT_FILES}
+    assert {'ldchain_torch.py', 'ld_decode_tpu_torch/comb/optflow.py',
+            'ld_decode_tpu_torch/comb/comb_ntsc.py',
+            'ld_decode_tpu_torch/comb/batch.py',
+            'ld_decode_tpu_torch/ops/gather.py',
+            'ld_decode_tpu_torch/ops/cuda_gather.py',
+            'ld_decode_tpu_torch/audio/cx.py',
+            'ld_decode_tpu_torch/io/export_sink.py'} <= names
     for path in PORT_FILES:
         with open(path) as f:
             m = FORBIDDEN.search(f.read())
@@ -36,7 +44,12 @@ sys.modules['ld_decode_tpu'] = None  # nor may the JAX package load
 import numpy as np
 import torch
 import lddecode_torch
+import ldchain_torch
+from ld_decode_tpu_torch.audio import cx
+from ld_decode_tpu_torch.comb import batch, comb_ntsc, optflow
+from ld_decode_tpu_torch.io import export_sink
 from ld_decode_tpu_torch.models import encode as E
+from ld_decode_tpu_torch.ops import cuda_gather
 from ld_decode_tpu_torch.ops import demod as D, filters as F
 from ld_decode_tpu_torch.tbc import cuda_resample as CR, framer, fused
 from ld_decode_tpu_torch.utils.params import DecoderConfig
@@ -44,7 +57,8 @@ cfg = DecoderConfig()
 cap = E.encode_frames(cfg, 1, E.EncodeSpec(pattern='flat50'))
 n = D.stream_len(cfg, 12)
 video, audio = D.demod_stream(torch.from_numpy(cap[:n].astype(np.float32)),
-                              F.make_demod_bank(cfg), cfg, 12, 1.0)
+                              F.make_demod_bank(cfg, device='cpu'), cfg,
+                              12, 1.0)
 ire = cfg.hztoire(video['demod'].numpy())
 assert -42 < np.median(ire[ire < -35]) < -38          # sync tips
 assert 48 < np.median(ire[(ire > 40) & (ire < 60)]) < 52
@@ -54,6 +68,13 @@ out = CR.resample_lines_batch(video['demod'][None].contiguous(), lli, llf,
                               910, 5, 2542.0)
 assert out.shape == (1, 5, 910) and torch.isfinite(out).all()
 assert CR.resample_lines_batch.launches == 0
+yy, xx = np.mgrid[0:63, 0:210].astype(np.float32)
+img = 1000 * np.sin(xx / 5) * np.cos(yy / 7) + 5000
+flow = optflow.calc_optical_flow_farneback(img, np.roll(img, 1, axis=1),
+                                           device='cpu')
+assert flow.shape == (63, 210, 2) and torch.isfinite(flow).all()
+assert abs(float(flow[20:40, 40:160, 0].median()) - 1) < 0.1
+assert cuda_gather.take_along_axis.launches == 0
 assert not [m for m, mod in sys.modules.items() if mod is not None
             and (m in ('jax', 'ld_decode_tpu')
                  or m.startswith(('jax.', 'ld_decode_tpu.')))]
