@@ -8,9 +8,10 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
   2. build: the hand-written CUDA kernels from ld_decode_tpu_torch/csrc,
      one nvcc per source, all started together;
   3. each kernel vs its plain PyTorch version on the card, at the main
-     paths' shapes, with device times (CUDA-graph replay between CUDA
-     events) of both, of the one PyTorch call that computes the same
-     function where there is one, and the bound the card sets;
+     paths' shapes, with device times (L2 cold, CUDA-graph replay between
+     CUDA events: MS_METHOD) of both, of the one PyTorch call that
+     computes the same function where there is one, and the bound the
+     card sets for this run's inputs;
   4. decode path: a 48-frame synthetic NTSC capture decoded by the port's
      Framer (batch 16, nblocks 52) from sample 33046 -- >= 32 frames with
      consecutive CAV frame numbers, K1 launches counted;
@@ -18,9 +19,10 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      same locked start, then once more under sync-debug "error" mode;
   6. the decode CLI (lddecode_torch.py) on a 10-frame .r16 capture;
   7. chain path: the same capture through Framer(fetch_picture=False) and
-     the dim-3 optical-flow comb in windows of 8 with 3 in flight, as
-     ldchain_torch.py runs it -- >= 16 RGB frames with consecutive CAV
-     numbers in their line-0 words, K1 and K2 launches counted;
+     the dim-3 optical-flow comb in windows of 8 with 3 in flight, through
+     ldchain_torch.py's loop (comb.batch.CombWindows) -- >= 16 RGB frames
+     with consecutive CAV numbers in their line-0 words, K1 and K2
+     launches counted;
   8. one comb window of 4 device frames (a smooth texture added, so the
      flow is well posed) combed on the card and on the CPU;
   9. the chain CLI (ldchain_torch.py) on the 10-frame capture.
@@ -90,16 +92,42 @@ def build_phase():
                 print('  ptxas:', line.strip())
 
 
-def _times(torch, fn, reps: int = 20):
-    """(device ms, call ms) of one fn() call.  Device: `reps` calls
-    captured in a CUDA graph and replayed between two events, so the
-    host's launch overhead is out of the measure (median of 5 replays).
-    Call: the median of `reps` single calls between two events, host
-    enqueue included -- what one eager call costs the path."""
+MS_METHOD = ('device time with a cold L2: 20 calls, each after a read of '
+             '3x the L2, in one CUDA graph, less the reads alone in '
+             'another; median of 7 replay pairs between CUDA events')
+_FLUSH = []
+
+
+def _l2_flush(torch):
+    """Read a buffer of three times the card's 50 MB L2, so that the call
+    after it fetches every operand from memory, as the bound assumes."""
+    if not _FLUSH:
+        _FLUSH.append(torch.ones(3 * 50 * 2**20 // 4, device='cuda'))
+    return _FLUSH[0].sum()
+
+
+def _replay_ms(torch, g) -> float:
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def _times(torch, fn, reps: int = 20) -> dict:
+    """Times of one fn() call, in ms:
+      ms       -- MS_METHOD: pure device time, no host launch overhead,
+                  operands from memory (the kernels line's `ms`);
+      warm_ms  -- `reps` calls in one CUDA graph with nothing between
+                  them, so operands that fit stay in the L2;
+      call_ms  -- the median of `reps` single eager calls between two
+                  events, host enqueue included (PR 1's `ms`)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
+    calls = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -107,22 +135,25 @@ def _times(torch, fn, reps: int = 20):
         fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    dev = []
-    for _ in range(5):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        b.synchronize()
-        dev.append(a.elapsed_time(b) / reps)
-    del g
-    return statistics.median(dev), statistics.median(times)
+        calls.append(a.elapsed_time(b))
+    graphs = [torch.cuda.CUDAGraph() for _ in range(3)]
+    bodies = [(fn,), (lambda: _l2_flush(torch), fn),
+              (lambda: _l2_flush(torch),)]
+    for g, body in zip(graphs, bodies):
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                for f in body:
+                    f()
+    warm, cold = [], []
+    for g in graphs:
+        _replay_ms(torch, g)
+    for _ in range(7):
+        warm.append(_replay_ms(torch, graphs[0]) / reps)
+        cold.append((_replay_ms(torch, graphs[1])
+                     - _replay_ms(torch, graphs[2])) / reps)
+    del graphs
+    return dict(ms=statistics.median(cold), warm_ms=statistics.median(warm),
+                call_ms=statistics.median(calls))
 
 
 def kernel_phase(torch, np):
@@ -158,10 +189,9 @@ def k1_cases(torch, np):
         d = (got - ref).abs()
         dmax, dmean = float(d.max()), float(d.mean())
         exact = bool(torch.equal(got, ref))
-        ms, call_ms = _times(
-            torch, lambda: CR.resample_lines_batch(*args, **kw))
-        plain_ms, _ = _times(
-            torch, lambda: CR.resample_lines_batch_plain(*args, **kw))
+        t = _times(torch, lambda: CR.resample_lines_batch(*args, **kw))
+        plain_ms = _times(
+            torch, lambda: CR.resample_lines_batch_plain(*args, **kw))['ms']
         # bytes the call must move: the demod samples under the output
         # columns of each line (with the 4 taps), the line tables, the
         # output once
@@ -172,14 +202,16 @@ def k1_cases(torch, np):
         flops = 30 * got.numel()         # weights, 4 taps, wow scale
         bound_ms, bound_by = _bound(nbytes, flops)
         print(f'K1 {name}: out {tuple(got.shape)} max|d| {dmax:.3e} '
-              f'mean|d| {dmean:.3e} bit-equal {exact} kernel {ms:.4f} ms '
-              f'(one eager call {call_ms:.4f} ms) plain {plain_ms:.4f} ms '
+              f'mean|d| {dmean:.3e} bit-equal {exact} kernel '
+              f'{t["ms"]:.4f} ms (L2 warm {t["warm_ms"]:.4f} ms, one eager '
+              f'call {t["call_ms"]:.4f} ms) plain {plain_ms:.4f} ms '
               f'bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, '
               f'{bound_by})')
         if not (dmax < K1_TOL_MAX and dmean < K1_TOL_MEAN):
             fail(f'{name}: kernel disagrees with the plain version '
                  f'(max {dmax}, mean {dmean})')
-        results[name] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
+        results[name] = dict(max_abs_err=dmax, ms=t['ms'],
+                             call_ms=t['call_ms'], plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=None)
     return results
@@ -193,11 +225,26 @@ def _bound(nbytes: int, flops: int):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
+def _distinct_read(torch, op, idx, axis: int) -> int:
+    """Elements of `op` that the gather must read: each distinct one once
+    (this run's indices, clamped as the kernel clamps them)."""
+    k = idx.long().clamp(0, op.shape[axis] - 1)
+    if axis == 0:
+        flat = k * op.shape[1] + torch.arange(idx.shape[1], device=k.device)
+    else:
+        flat = (torch.arange(idx.shape[0], device=k.device)[:, None]
+                * op.shape[1] + k)
+    return int(torch.unique(flat).numel())
+
+
 def k2_cases(torch, np):
     """K2 at the probe's shapes (scripts/probe_warp.py:112-116) and at the
-    Farneback warp's three pyramid levels: rows of 20 gathered on axis 0
-    with one index per row broadcast (stride 0), indices from a flow of
-    sd 2 px as the warp computes them."""
+    Farneback warp's three pyramid levels as the flow calls it: both
+    fields' rows of 20 in one gather on axis 0, one index per row
+    broadcast (stride 0), field b's rows offset by b*h*w, indices from a
+    smooth flow of sd 2 px per field (the warp's flow is a box-blurred
+    solve).  The bound counts the distinct operand elements read."""
+    from scipy.ndimage import gaussian_filter
     from ld_decode_tpu_torch.ops import cuda_gather as CG
     from ld_decode_tpu_torch.ops import gather as G
     rng = np.random.default_rng(RNG_SEED + 2)
@@ -205,21 +252,26 @@ def k2_cases(torch, np):
              for shape, axis in (((8, 128), 1), ((64, 128), 1),
                                  ((256, 128), 1), ((8, 128), 0),
                                  ((128, 128), 0), ((512, 512), 1))]
-    cases += [(f'warp level {h}x{w}', (h, w), 'warp')
+    cases += [(f'warp 2 fields x {h}x{w}', (h, w), 'warp')
               for h, w in ((252, 840), (126, 420), (63, 210))]
     results = {}
     for name, shape, axis in cases:
         if axis == 'warp':
             h, w = shape
             yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-            fx = np.clip(xx + rng.normal(0, 2, (h, w)), 0, w - 1.001)
-            fy = np.clip(yy + rng.normal(0, 2, (h, w)), 0, h - 1.001)
-            rows = (np.floor(fy).astype(np.int32) * w
-                    + np.floor(fx).astype(np.int32)).reshape(-1, 1)
+            rows = []
+            for b in range(2):
+                d = [gaussian_filter(rng.normal(0, 1, (h, w)), 8)
+                     for _ in range(2)]
+                fx = np.clip(xx + d[0] * (2 / d[0].std()), 0, w - 1.001)
+                fy = np.clip(yy + d[1] * (2 / d[1].std()), 0, h - 1.001)
+                rows.append(np.floor(fy).astype(np.int32) * w
+                            + np.floor(fx).astype(np.int32) + b * h * w)
+            rows = np.concatenate([r.ravel() for r in rows])[:, None]
             op = torch.from_numpy(rng.standard_normal(
-                (h * w, 20), dtype=np.float32)).cuda()
-            idx = torch.from_numpy(rows).cuda().expand(h * w, 20)
-            axis, idx_bytes = 0, 4 * h * w
+                (2 * h * w, 20), dtype=np.float32)).cuda()
+            idx = torch.from_numpy(rows).cuda().expand(2 * h * w, 20)
+            axis, idx_bytes = 0, 4 * rows.size
         else:
             op = torch.from_numpy(rng.standard_normal(
                 shape, dtype=np.float32)).cuda()
@@ -233,23 +285,26 @@ def k2_cases(torch, np):
         dmax = float((got - ref).abs().max())
         exact, lib_exact = bool(torch.equal(got, ref)), bool(
             torch.equal(got, lib))
-        ms, call_ms = _times(
-            torch, lambda: CG.take_along_axis(op, idx, axis))
-        plain_ms, _ = _times(
-            torch, lambda: G.take_along_axis_plain(op, idx, axis))
+        t = _times(torch, lambda: CG.take_along_axis(op, idx, axis))
+        plain_ms = _times(
+            torch, lambda: G.take_along_axis_plain(op, idx, axis))['ms']
         lidx = idx.long()
-        library_ms, _ = _times(
-            torch, lambda: torch.take_along_dim(op, lidx, axis))
-        nbytes = 4 * op.numel() + idx_bytes + 4 * got.numel()
+        library_ms = _times(
+            torch, lambda: torch.take_along_dim(op, lidx, axis))['ms']
+        nread = _distinct_read(torch, op, idx, axis)
+        nbytes = 4 * nread + idx_bytes + 4 * got.numel()
         bound_ms, bound_by = _bound(nbytes, 0)
         print(f'K2 {name}: out {tuple(got.shape)} bit-equal to plain '
-              f'{exact}, to take_along_dim {lib_exact}; kernel {ms:.4f} ms '
-              f'(one eager call {call_ms:.4f} ms) plain {plain_ms:.4f} ms '
+              f'{exact}, to take_along_dim {lib_exact}; kernel '
+              f'{t["ms"]:.4f} ms (L2 warm {t["warm_ms"]:.4f} ms, one eager '
+              f'call {t["call_ms"]:.4f} ms) plain {plain_ms:.4f} ms '
               f'take_along_dim {library_ms:.4f} ms bound {bound_ms:.4f} ms '
-              f'({nbytes / 1e6:.2f} MB)')
+              f'({nbytes / 1e6:.2f} MB; {nread / op.numel():.4f} of the '
+              f'operand read)')
         if not (exact and lib_exact):
             fail(f'K2 {name}: kernel is not bit-equal (max|d| {dmax})')
-        results[name] = dict(max_abs_err=dmax, ms=ms, plain_ms=plain_ms,
+        results[name] = dict(max_abs_err=dmax, ms=t['ms'],
+                             call_ms=t['call_ms'], plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=library_ms)
     return results
@@ -410,9 +465,8 @@ def cli_phase(np, cap, cfg):
 
 def chain_phase(torch, np, cfg, cap, bank):
     phase('7 chain path')
-    from collections import deque
     from ld_decode_tpu_torch.audio.cx import CXExpander
-    from ld_decode_tpu_torch.comb.batch import NTSCCombBatch
+    from ld_decode_tpu_torch.comb.batch import CombWindows, NTSCCombBatch
     from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig
     from ld_decode_tpu_torch.ops import cuda_gather as CG
     from ld_decode_tpu_torch.tbc import cuda_resample as CR
@@ -424,23 +478,15 @@ def chain_phase(torch, np, cfg, cap, bank):
                    device='cuda', fetch_picture=False)
     comb = NTSCCombBatch(CombConfig(dim=3), device='cuda')
     cx = CXExpander()
-    pending, buf, rgbs, words, dev_frames = deque(), [], [], [], []
+    rgbs, words, dev_frames = [], [], []
     nframes, naudio = 0, 0
 
-    def flush(drain=False):
-        if buf:
-            h = comb.feed(torch.stack([
-                x if isinstance(x, torch.Tensor)
-                else torch.from_numpy(x.astype(np.int32)).cuda()
-                for x in buf]))
-            if h is not None:
-                pending.append(h)
-            buf.clear()
-        while len(pending) > (0 if drain else 3):
-            r, w = comb.collect(pending.popleft())
-            rgbs.extend(r)
-            words.extend(w)
+    def emit(rgb, w):
+        rgbs.append(rgb)
+        words.append(w)
 
+    # ldchain_torch.py's defaults: windows of 8 frames, 3 in flight
+    windows = CombWindows(comb, 8, 3, emit)
     CR.resample_lines_batch.launches = 0
     CG.take_along_axis.launches = 0
     t0 = time.perf_counter()
@@ -452,14 +498,12 @@ def chain_phase(torch, np, cfg, cap, bank):
         frame = rv[0].reshape(525, 910)
         if isinstance(frame, torch.Tensor) and len(dev_frames) < 4:
             dev_frames.append(frame.clone())
-        buf.append(frame)
+        windows.push(frame)
         nframes += 1
-        if len(buf) >= 8:
-            flush()
         if rv[1] is not None:
             naudio += cx.process(np.asarray(rv[1]).ravel()).size
         sample = rv[2]
-    flush(drain=True)
+    windows.drain()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     k1, k2 = CR.resample_lines_batch.launches, CG.take_along_axis.launches
@@ -486,11 +530,11 @@ def chain_phase(torch, np, cfg, cap, bank):
     expect1 = 3 * (st['batches'] + st['seq_decoded'])
     print(f'K1 launches {k1} (3 per batch x {st["batches"]} + 3 per '
           f'sequential field x {st["seq_decoded"]}); K2 launches {k2} '
-          f'(18 per RGB frame: 3 warps x 3 levels x 2 fields)')
+          f'(9 per RGB frame: 3 warps x 3 levels, both fields in each)')
     if k1 != expect1 or k1 == 0:
         fail(f'K1 launches {k1}, expected {expect1}')
-    if k2 != 18 * len(rgbs):
-        fail(f'K2 launches {k2}, expected {18 * len(rgbs)}')
+    if k2 != 9 * len(rgbs):
+        fail(f'K2 launches {k2}, expected {9 * len(rgbs)}')
     if not naudio:
         fail('no CX audio')
     return k1, k2, dev_frames
@@ -596,16 +640,20 @@ def main():
     if 'jax' in sys.modules:
         fail('jax was imported')
 
+    # the kernels line's launches are the chain path's (phase 7), this
+    # slice's main path; the decode path's K1 count is printed here
     print(f'decode path K1 launches {launches}; chain path K1 {k1}, K2 {k2}')
-    k1r, k2r = kres['K1']['ntsc picture'], kres['K2']['warp level 252x840']
+    k1r = kres['K1']['ntsc picture']
+    k2r = kres['K2']['warp 2 fields x 252x840']
     print(json.dumps({'kernels': [
         dict(name='resample_lines_batch', route='cuda',
              source='ld_decode_tpu_torch/csrc/resample_lines.cu',
              replaces='ld_decode_tpu/tbc/pallas_resample.py:205',
-             launches=k1, **k1r),
+             launches=k1, ms_method=MS_METHOD, **k1r),
         dict(name='take_along_axis', route='cuda',
              source='ld_decode_tpu_torch/csrc/take_along_axis.cu',
-             replaces='scripts/probe_warp.py:118', launches=k2, **k2r)]}))
+             replaces='scripts/probe_warp.py:118', launches=k2,
+             ms_method=MS_METHOD, **k2r)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -8,9 +8,10 @@ comb runs both fields of a frame in one call.
 
 * polynomial expansion: separable correlations with replicate borders,
   each one matmul of an unfolded window against the taps;
-* per iteration: the bilinear warp of the quad-expanded second field --
-  one row gather per field through kernel K2 (ops/gather.py) -- then the
-  normal equations, a box blur and a closed-form 2x2 solve per pixel;
+* per iteration: the bilinear warp of the quad-expanded second fields --
+  one row gather over all fields through kernel K2 (ops/gather.py) --
+  then the normal equations, a box blur and a closed-form 2x2 solve per
+  pixel;
 * pyramid levels resized with jax.image.resize's antialiased triangle
   filter, rebuilt here as separable weight matrices (`resize_weights`).
 """
@@ -128,19 +129,22 @@ def _bilinear_gather_quad(Rq: torch.Tensor, h: int, w: int, c: int,
                           fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
     """Sample the quad-expanded fields (B, H*W, 4*C) at float coords
     (B, H, W), clamped to the frame.  All four corners of a pixel come
-    from one 4*C-wide row: per field, one take_along_axis on axis 0 with
-    the row index broadcast across the row (a stride-0 view) -- kernel
-    K2 on the card."""
+    from one 4*C-wide row: one take_along_axis on axis 0 over the B*H*W
+    rows of all fields, field b's rows offset by b*H*W, with the row index
+    broadcast across the row (a stride-0 view) -- one launch of kernel K2
+    on the card."""
+    b = fx.shape[0]
     fx = torch.clamp(fx, 0.0, w - 1.001)
     fy = torch.clamp(fy, 0.0, h - 1.001)
     x0 = torch.floor(fx).to(torch.int32)
     y0 = torch.floor(fy).to(torch.int32)
     ax = (fx - x0)[..., None]
     ay = (fy - y0)[..., None]
-    rows = (y0 * w + x0).reshape(fx.shape[0], h * w, 1)
-    q = torch.stack([
-        take_along_axis(Rq[b], rows[b].expand(h * w, 4 * c), 0)
-        for b in range(fx.shape[0])]).reshape(fx.shape[0], h, w, 4, c)
+    base = torch.arange(b, dtype=torch.int32, device=fx.device) * (h * w)
+    rows = ((y0 * w + x0).reshape(b, h * w) + base[:, None]).reshape(-1, 1)
+    q = take_along_axis(Rq.reshape(b * h * w, 4 * c),
+                        rows.expand(b * h * w, 4 * c),
+                        0).reshape(b, h, w, 4, c)
     return (q[..., 0, :] * (1 - ay) * (1 - ax) + q[..., 1, :] * (1 - ay) * ax
             + q[..., 2, :] * ay * (1 - ax) + q[..., 3, :] * ay * ax)
 

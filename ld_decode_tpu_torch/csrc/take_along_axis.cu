@@ -15,10 +15,12 @@
 // range at both call sites; the clamp keeps a stray one inside the tensor.
 //
 // What bounds it on the card: memory traffic.  At the warp's full pyramid
-// level (252 x 840 = 211,680 rows of 20 floats) it moves 16.9 MB gathered,
-// 16.9 MB written and 0.85 MB of index: ~10.4 us at 3.35 TB/s.  The whole
-// operand (16.9 MB) fits in the 50 MB L2, so the three warps of a level find
-// it there.  Design, simple first: one thread per output element in
+// level one call gathers both fields (2 x 252 x 840 = 423,360 rows of 20
+// floats): at most 33.9 MB gathered, 33.9 MB written and 1.7 MB of index,
+// ~20.7 us at 3.35 TB/s; rows that no pixel samples are not read, so the
+// bound of a given index counts only the distinct rows it reads.  The whole
+// operand (33.9 MB) fits in the 50 MB L2, so the three warps of a level may
+// find it there.  Design, simple first: one thread per output element in
 // row-major order, so a warp writes 32 consecutive floats, and for the
 // axis-0 gather the 32 threads read 1.6 rows of 80 contiguous bytes each;
 // __ldg on the operand and the index; a grid-stride loop over a grid capped

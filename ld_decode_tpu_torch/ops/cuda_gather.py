@@ -5,8 +5,9 @@ Replaces the TPU Pallas kernel scripts/probe_warp.py:118 (probe_dyngather's
 Farneback warp (ld_decode_tpu/comb/optflow.py:160, here
 comb/optflow.py::_bilinear_gather_quad).  The source is
 csrc/take_along_axis.cu (one thread per output element; bound by memory
-traffic, ~10.4 us for the warp's full level at 3.35 TB/s -- see the note
-there), built with nvcc at first use (utils/cuda_build.py).
+traffic, at most ~20.7 us for the warp's full level, both fields in one
+call, at 3.35 TB/s -- see the note there), built with nvcc at first use
+(utils/cuda_build.py).
 
 Each launch adds one to ``take_along_axis.launches``.  Callers go through
 ops/gather.py::take_along_axis, which sends CPU tensors to the plain

@@ -17,7 +17,6 @@ past the video.
 
 import argparse
 import sys
-from collections import deque
 
 import numpy as np
 
@@ -92,9 +91,8 @@ def main(argv=None):
     if args.efm:
         raise NotImplementedError(EFM_TODO)
 
-    import torch
     from ld_decode_tpu_torch.audio.cx import CXExpander
-    from ld_decode_tpu_torch.comb.batch import NTSCCombBatch
+    from ld_decode_tpu_torch.comb.batch import CombWindows, NTSCCombBatch
     from ld_decode_tpu_torch.comb.comb_ntsc import (CombConfig,
                                                     PulldownAssembler)
     from ld_decode_tpu_torch.io import loaders as L
@@ -163,32 +161,11 @@ def main(argv=None):
         else:
             sink.write(rgb)
 
-    def harvest(handle):
-        rgbs, words = comb.collect(handle)
-        for rgb, w in zip(rgbs, words):
-            emit(rgb, w)
-
     # ----- the chain loop: frames accumulate on the device; every
     # comb-batch frames one comb window runs, and up to --depth windows
     # keep their RGB on the device (its copy to the host in flight) while
     # the next frames decode
-    pending = deque()
-    buf = []
-
-    def flush_windows(drain=False):
-        if buf:
-            frames = torch.stack([
-                x if isinstance(x, torch.Tensor)
-                else torch.from_numpy(x.astype(np.int32)).to(device)
-                for x in buf])
-            h = comb.feed(frames)
-            if h is not None:
-                pending.append(h)
-            buf.clear()
-        limit = 0 if drain else args.depth
-        while len(pending) > limit:
-            harvest(pending.popleft())
-
+    windows = CombWindows(comb, args.comb_batch, args.depth, emit)
     first = True
     try:
         while args.length is None or sink.nframes < args.length:
@@ -197,16 +174,14 @@ def main(argv=None):
             first = False
             if combined is None:
                 break
-            buf.append(combined.reshape(Y, X))
-            if len(buf) >= args.comb_batch:
-                flush_windows()
+            windows.push(combined.reshape(Y, X))
             if audio is not None and out_audio is not None:
                 pcm = np.asarray(audio).ravel()
                 out = cx.process(pcm) if not args.no_cx \
                     else (pcm.astype(np.int64) + 32768).astype(np.uint16)
                 out_audio.write((out.astype(np.int32) - 32768
                                  ).astype('<i2').tobytes())
-        flush_windows(drain=True)
+        windows.drain()
     finally:
         fd.close()
         sink.close()

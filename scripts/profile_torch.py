@@ -25,7 +25,8 @@ from torch.autograd import DeviceType
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ld_decode_tpu_torch.comb.batch import NTSCCombBatch  # noqa: E402
+from ld_decode_tpu_torch.comb.batch import (  # noqa: E402
+    CombWindows, NTSCCombBatch)
 from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig  # noqa: E402
 from ld_decode_tpu_torch.models import encode as E  # noqa: E402
 from ld_decode_tpu_torch.ops import filters as F  # noqa: E402
@@ -114,23 +115,25 @@ def main():
     report('decode window', wall, events, batches, 'batch')
 
     if args.comb:
-        # 17 woven device frames of the chain: one window to warm the
-        # comb (frame 0 dropped, the flow carry seeded), one profiled
+        # 16 woven device frames of the chain, pushed through the chain's
+        # window loop (windows of 8, none left in flight): the first
+        # window warms the comb (frame 0 dropped, the flow carry seeded),
+        # the second is profiled
         chain = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=52,
                           device='cuda', fetch_picture=False)
         frames, s = [], 33046
-        for i in range(17):
+        for i in range(16):
             rv = chain.readframe(None, s, i == 0)
-            frames.append(rv[0] if isinstance(rv[0], torch.Tensor) else
-                          torch.from_numpy(rv[0].astype(np.int32)).cuda())
+            frames.append(rv[0].reshape(525, 910))
             s = rv[2]
-        frames = torch.stack(frames).reshape(17, 525, 910)
         comb = NTSCCombBatch(CombConfig(dim=3), device='cuda')
-        comb.collect(comb.feed(frames[:9]))
-        out = {}
-        wall, events = profiled(
-            lambda: out.update(r=comb.collect(comb.feed(frames[9:]))[0]))
-        n = len(out['r'])
+        out = []
+        windows = CombWindows(comb, 8, 0, lambda rgb, words: out.append(rgb))
+        for f in frames[:8]:
+            windows.push(f)
+        out.clear()
+        wall, events = profiled(lambda: [windows.push(f) for f in frames[8:]])
+        n = len(out)
         print(f'comb: {n} RGB frames, {n / wall:.2f} frames/s under the '
               f'profiler')
         report('comb window', wall, events, n, 'RGB frame')

@@ -303,6 +303,28 @@ def test_batch_pending_until_enough_frames(frames6):
     assert len(rgbs) == 1
 
 
+def test_comb_windows_loop_depth_and_order(frames6):
+    """The chain's window loop (CombWindows, ldchain_tpu.py:193-233):
+    frames pushed one at a time, a window fed every 2 frames, one window
+    left in flight until the next is fed or the loop drains; what it emits
+    equals JAX's driver fed the same windows, in order."""
+    windows = [frames6[:2], frames6[2:4], frames6[4:5]]
+    _, want, wwords = _run_jax(JC.CombConfig(dim=2), windows)
+    got, gwords = [], []
+    loop = TB.CombWindows(
+        TB.NTSCCombBatch(TC.CombConfig(dim=2), device='cpu'), 2, 1,
+        lambda rgb, words: (got.append(rgb), gwords.append(words)))
+    for k, f in enumerate(frames6[:5]):
+        loop.push(f.reshape(525, 910))
+        assert len(got) == (2 if k >= 3 else 0)
+    loop.drain()
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert _lsb(g, w).max() <= 1
+    for g, w in zip(gwords, wwords):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_debug_surfaces_raise():
     for kw in (dict(debug2d=True), dict(showk=True), dict(debugline=5)):
         with pytest.raises(NotImplementedError, match='streaming NTSCComb'):

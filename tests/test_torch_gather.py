@@ -4,8 +4,8 @@
 The plain version must equal numpy's and JAX's take_along_axis and an
 interpret-mode pallas_call of the probe's kernel body bit for bit -- a
 gather moves values and computes nothing.  Shapes: the probe's six, and
-the Farneback warp's full level (252 x 840 rows of 20, axis 0, one index
-per row broadcast as a stride-0 view)."""
+the Farneback warp's full level (both fields' 2 x 252 x 840 rows of 20 in
+one call, axis 0, one index per row broadcast as a stride-0 view)."""
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +22,7 @@ torch.set_num_threads(2)
 # scripts/probe_warp.py:112-113
 PROBE = [((8, 128), 1), ((64, 128), 1), ((256, 128), 1), ((8, 128), 0),
          ((128, 128), 0), ((512, 512), 1)]
-WARP_ROWS = 252 * 840
+WARP_ROWS = 2 * 252 * 840       # both fields of the warp's full level
 
 
 def _probe_case(shape, axis, seed=2):
@@ -59,7 +59,7 @@ def test_plain_equals_numpy_jax_and_pallas(shape, axis):
 
 
 def test_plain_warp_gather_stride0_index():
-    """The warp's gather: (211,680, 20) rows, one index per row broadcast
+    """The warp's gather: (423,360, 20) rows, one index per row broadcast
     across the row without materialising it, equal to the JAX warp's flat
     `jnp.take(Rq, rows, axis=0)` (comb/optflow.py:160)."""
     rng = np.random.default_rng(5)

@@ -20,6 +20,7 @@ from scipy.ndimage import gaussian_filter, shift as nd_shift
 
 from ld_decode_tpu.comb import optflow as JO
 from ld_decode_tpu_torch.comb import optflow as TO
+from ld_decode_tpu_torch.ops import gather as G
 
 torch.set_num_threads(2)
 
@@ -91,6 +92,35 @@ def test_bilinear_gather_quad_exact(stages):
     got = TO._bilinear_gather_quad(_t(stages['R1q']), H, W, 5, _t(fx),
                                    _t(fy))[0].numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_bilinear_gather_quad_two_fields_one_gather(stages, monkeypatch):
+    """Both fields sample in one take_along_axis call (one K2 launch on
+    the card), each from its own rows: bit-equal to JAX field by field."""
+    yy, xx = np.meshgrid(np.arange(H, dtype=np.float32),
+                         np.arange(W, dtype=np.float32), indexing='ij')
+    flows = [stages['flow'], -stages['flow'][::-1]]
+    Rqs = [stages['R1q'], stages['R1q'][::-1] * 0.5]
+    fx = np.stack([xx + f[..., 0] for f in flows])
+    fy = np.stack([yy + f[..., 1] for f in flows])
+    with jax.enable_x64(False):
+        want = [np.asarray(JO._bilinear_gather_quad(
+            jnp.asarray(np.ascontiguousarray(Rq)), H, W, 5,
+            jnp.asarray(fx[b]), jnp.asarray(fy[b])))
+            for b, Rq in enumerate(Rqs)]
+    calls = []
+
+    def counted(*args):
+        calls.append(args)
+        return G.take_along_axis(*args)
+
+    monkeypatch.setattr(TO, 'take_along_axis', counted)
+    got = TO._bilinear_gather_quad(
+        torch.from_numpy(np.stack(Rqs).copy()), H, W, 5,
+        torch.from_numpy(fx), torch.from_numpy(fy)).numpy()
+    assert len(calls) == 1
+    for b in range(2):
+        np.testing.assert_array_equal(got[b], want[b])
 
 
 def test_update_matrices(stages):
