@@ -4,14 +4,25 @@ Replaces the TPU Pallas kernel scripts/probe_warp.py:118 (probe_dyngather's
 `kern`), placed where that probe was aimed: the quad-row gather of the
 Farneback warp (ld_decode_tpu/comb/optflow.py:160, here
 comb/optflow.py::_bilinear_gather_quad).  The source is
-csrc/take_along_axis.cu (one thread per output element; bound by memory
-traffic, at most ~20.7 us for the warp's full level, both fields in one
-call, at 3.35 TB/s -- see the note there), built with nvcc at first use
-(utils/cuda_build.py).
+csrc/take_along_axis.cu, built with nvcc at first use
+(utils/cuda_build.py).  It is bound by memory traffic (~19-21 us for the
+warp's full level, both fields in one call, at 3.35 TB/s), and reaching
+that rate takes many loads in flight: see the note there.
 
-Each launch adds one to ``take_along_axis.launches``.  Callers go through
-ops/gather.py::take_along_axis, which sends CPU tensors to the plain
-version.
+Two paths, one launch either way:
+  - the row gather (`take_rows_launch`), when `row_gather_ok`: axis 0,
+    one index per row (idx.stride(1) == 0, the warp's broadcast view),
+    a width that is a multiple of 4 floats and op and out 16-byte
+    aligned -- each output row is one operand row, copied in 16-byte
+    chunks, one a thread;
+  - the general gather (`take_along_axis_launch`), a thread per output
+    element, for every other call (axis 1, a full index, other widths,
+    unaligned views).
+
+Each launch adds one to ``take_along_axis.launches``; a launch on the row
+path also adds one to ``take_along_axis.row_launches``.  Callers go
+through ops/gather.py::take_along_axis, which sends CPU tensors to the
+plain version.
 """
 
 from __future__ import annotations
@@ -23,17 +34,39 @@ import torch
 _LIB = None
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' signatures on a loaded library."""
+    fn = lib.take_along_axis_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+        + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.take_rows_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         from ld_decode_tpu_torch.utils import cuda_build
-        lib = cuda_build.build('take_along_axis.cu')
-        fn = lib.take_along_axis_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
-            + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = _bind(cuda_build.build('take_along_axis.cu'))
     return _LIB
+
+
+def row_gather_ok(op: torch.Tensor, idx: torch.Tensor, axis: int,
+                  out: torch.Tensor) -> bool:
+    """Whether a call takes K2's row-gather path: each output row is the
+    operand row named by one index (axis 0, idx broadcast along the row),
+    copied as 16-byte chunks, so the width is a multiple of 4 floats and
+    op and out start on 16-byte boundaries; the chunk count fits 31 bits.
+    Reads only shapes, strides and addresses (any device)."""
+    return (axis == 0 and idx.dim() == 2 and idx.stride(1) == 0
+            and op.dim() == 2 and op.is_contiguous()
+            and op.shape[1] % 4 == 0 and op.shape[1] > 0
+            and op.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+            and idx.shape[0] * (op.shape[1] // 4) < 2**31)
 
 
 def take_along_axis(op: torch.Tensor, idx: torch.Tensor,
@@ -67,15 +100,23 @@ def take_along_axis(op: torch.Tensor, idx: torch.Tensor,
     out = torch.empty(idx.shape, dtype=torch.float32, device=op.device)
     with torch.cuda.device(op.device):
         stream = torch.cuda.current_stream(op.device).cuda_stream
-        rc = _lib().take_along_axis_launch(
-            op.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
-            idx.shape[1], op.shape[0], op.shape[1], idx.stride(0),
-            idx.stride(1), axis, stream)
+        rows = row_gather_ok(op, idx, axis, out)
+        if rows:
+            rc = _lib().take_rows_launch(
+                op.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+                op.shape[1], op.shape[0], idx.stride(0), stream)
+        else:
+            rc = _lib().take_along_axis_launch(
+                op.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+                idx.shape[1], op.shape[0], op.shape[1], idx.stride(0),
+                idx.stride(1), axis, stream)
     if rc != 0:
         raise RuntimeError(f'take_along_axis kernel launch failed: '
                            f'cudaError {rc}')
     take_along_axis.launches += 1
+    take_along_axis.row_launches += int(rows)
     return out
 
 
 take_along_axis.launches = 0
+take_along_axis.row_launches = 0

@@ -3,9 +3,17 @@ dispatcher.
 
 Replaces the TPU Pallas kernel
 ``ld_decode_tpu/tbc/pallas_resample.py::resample_lines_batch``.  The kernel
-source is csrc/resample_lines.cu (one thread per output sample; bound by
-memory traffic -- see the note there); it is built with nvcc at first use
-(utils/cuda_build.py) and bound with ctypes.
+source is csrc/resample_lines.cu, built with nvcc at first use
+(utils/cuda_build.py) and bound with ctypes.  The picture call is bound by
+memory traffic (each line's ~2546-sample span read once, the output
+written once), the 48-column burst-window call by latency; see the note
+there.  A group of warps resamples one line (`launch_plan`): the line's
+span is staged in shared memory with 16-byte asynchronous copies and the
+outputs are computed from there.  A line whose span does not fit the
+group's buffer, or whose table is broken (steplen negative or not
+finite), reads its taps from global memory in the same kernel; so does
+every line when the data rows are not 16-byte aligned.  Either way the
+result is bit-equal to the plain version.
 
 Dispatch follows the tensor's device: a CPU tensor takes the plain PyTorch
 version (`resample_lines_batch_plain`); a CUDA tensor launches the kernel
@@ -15,6 +23,7 @@ or raises.  Each launch adds one to ``resample_lines_batch.launches``.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -24,17 +33,43 @@ from ld_decode_tpu_torch.tbc.resample import downscale_lines_split
 _LIB = None
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry point's signature on a loaded library."""
+    fn = lib.resample_lines_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 \
+        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
         from ld_decode_tpu_torch.utils import cuda_build
-        lib = cuda_build.build('resample_lines.cu')
-        fn = lib.resample_lines_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = _bind(cuda_build.build('resample_lines.cu'))
     return _LIB
+
+
+_BLOCK = 128                # threads a block
+_SMEM_FLOATS = 48 * 1024 // 4   # static shared-memory limit of a block
+
+
+def launch_plan(ncols: int, outwidth: int, st_nom: float):
+    """(group, cap) for a call: `group` threads resample one line -- one
+    warp per 128 output columns, rounded up to a power of two and at most
+    the whole block (4 warps for the picture's 910 columns, 1 for the burst
+    window's 48, so a block holds 4 such lines); `cap` floats of shared
+    memory hold one line's span: the columns' share of a line up to 1.25x
+    st_nom long, plus a dozen samples for the taps and the widening to
+    16-byte chunks.  Longer lines take the kernel's global-memory path."""
+    warps = 1
+    while 32 * warps < _BLOCK and 128 * warps < ncols:
+        warps *= 2
+    group = 32 * warps
+    span = math.ceil(1.25 * abs(st_nom) * ncols / abs(outwidth)) + 12
+    cap = min(-(-span // 4) * 4, _SMEM_FLOATS // (_BLOCK // group) // 4 * 4)
+    return group, cap
 
 
 def _steplen_wow(lli, llf, nlines: int, st_nom: float):
@@ -86,22 +121,26 @@ def resample_lines_batch(data: torch.Tensor, lli: torch.Tensor,
     for name, t, dt in (('lli', lli, torch.int32), ('llf', llf,
                                                     torch.float32)):
         if t.device != data.device or t.dtype != dt or t.dim() != 2 \
-                or t.shape[0] != B or t.shape[1] < nlines + 1:
+                or t.shape[0] != B or t.shape[1] < nlines + 1 \
+                or t.stride(1) != 1:
             raise ValueError(f'resample_lines_batch: {name} must be ({B}, '
-                             f'>={nlines + 1}) {dt} on {data.device}, got '
-                             f'{t.dtype} {tuple(t.shape)} on {t.device}')
+                             f'>={nlines + 1}) {dt} on {data.device} with '
+                             f'unit column stride, got {t.dtype} '
+                             f'{tuple(t.shape)} strides {t.stride()} on '
+                             f'{t.device}')
     if nsamp < 4:
         raise ValueError('resample_lines_batch: need at least 4 samples')
-    lli = lli[:, :nlines + 1].contiguous()
-    llf = llf[:, :nlines + 1].contiguous()
     out = torch.empty((B, nlines, ncols), dtype=torch.float32,
                       device=data.device)
+    group, cap = launch_plan(ncols, outwidth, st_nom)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
+        # the tables are read in place through their row strides (the
+        # picture call passes the views lli[:, 1:], llf[:, 1:])
         rc = _lib().resample_lines_launch(
             data.data_ptr(), lli.data_ptr(), llf.data_ptr(), out.data_ptr(),
-            B, nsamp, nlines, nlines + 1, col0, ncols, 1.0 / outwidth,
-            float(st_nom), stream)
+            B, nsamp, nlines, lli.stride(0), llf.stride(0), col0, ncols,
+            1.0 / outwidth, float(st_nom), group, cap, stream)
     if rc != 0:
         raise RuntimeError(f'resample_lines kernel launch failed: '
                            f'cudaError {rc}')

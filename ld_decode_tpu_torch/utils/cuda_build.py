@@ -30,7 +30,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 class BuildInfo:
     """What one build did: library path, seconds spent in nvcc (0 when the
-    library was already built) and nvcc's register/spill report."""
+    library was already built) and nvcc's register/spill report (kept
+    beside the library, so a later process reads it too)."""
 
     def __init__(self, path: str, seconds: float, log: str):
         self.path = path
@@ -51,7 +52,9 @@ def find_nvcc() -> str:
 
 
 def build(source: str, name: Optional[str] = None) -> ctypes.CDLL:
-    """Compile csrc/<source> into build/ld_decode_tpu_torch/ and load it."""
+    """Compile csrc/<source> (or the .cu file at an absolute path, such as
+    an earlier version timed against this one) into
+    build/ld_decode_tpu_torch/ and load it."""
     src = os.path.join(CSRC_DIR, source)
     with open(src, 'rb') as f:
         text = f.read()
@@ -60,6 +63,9 @@ def build(source: str, name: Optional[str] = None) -> ctypes.CDLL:
                          ).hexdigest()[:16]
     so = os.path.join(BUILD_DIR, f'{name}_{key}.so')
     seconds, log = 0.0, ''
+    if os.path.exists(so) and os.path.exists(so + '.log'):
+        with open(so + '.log') as f:
+            log = f.read()
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f'{so}.tmp.{os.getpid()}'
@@ -73,6 +79,8 @@ def build(source: str, name: Optional[str] = None) -> ctypes.CDLL:
                 os.remove(tmp)
             raise RuntimeError(f'nvcc failed ({proc.returncode}) building '
                                f'{source}:\n{" ".join(cmd)}\n{log}')
+        with open(so + '.log', 'w') as f:
+            f.write(log)
         os.replace(tmp, so)
     BUILDS[name] = BuildInfo(so, seconds, log)
     return ctypes.CDLL(so)

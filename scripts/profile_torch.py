@@ -9,8 +9,10 @@ Prints the card's name and power limit, then for each profiled window its
 wall time, the device's busy and idle share (summed kernel and copy time
 over the window's wall time; the port runs on one stream), the device
 operations per unit of work (per field batch for the decode, per emitted
-RGB frame for the comb) and the kernels that take the most device time.
-Fails without a CUDA device.
+RGB frame for the comb), the launches and device time of the hand-written
+kernels K1 (resample_lines_kernel) and K2 (take_rows_kernel, the row
+gather, and take_along_axis_kernel, the general path) and the kernels
+that take the most device time.  Fails without a CUDA device.
 """
 
 import argparse
@@ -49,6 +51,11 @@ def profiled(fn, trace=None):
     return wall, prof.key_averages()
 
 
+HAND_KERNELS = (('K1 resample_lines', ('resample_lines_kernel',)),
+                ('K2 take_along_axis', ('take_rows_kernel',
+                                        'take_along_axis_kernel')))
+
+
 def report(label, wall, events, units, unit_name):
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in dev)
@@ -58,6 +65,13 @@ def report(label, wall, events, units, unit_name):
           f'idle share {1 - busy_us / 1e6 / wall:.4f}')
     print(f'device ops {launches} ({launches / max(units, 1):.0f} per '
           f'{unit_name}), mean {busy_us / max(launches, 1):.2f} us each')
+    for kernel, names in HAND_KERNELS:
+        ks = [e for e in dev if any(n in e.key for n in names)]
+        n = sum(e.count for e in ks)
+        t = sum(e.self_device_time_total for e in ks)
+        print(f'{kernel}: {n} launches, {t / 1e3:.3f} ms device, '
+              f'{t / max(n, 1):.2f} us each, {t / max(busy_us, 1):.4f} of '
+              f'device time')
     print(f'{"kernel":70s} {"count":>7s} {"total ms":>9s} {"share":>6s}')
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:20]:
         print(f'{e.key[:70]:70s} {e.count:7d} '

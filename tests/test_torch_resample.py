@@ -114,21 +114,78 @@ def test_catmull_rom_weights_partition_unity():
     assert torch.allclose(sum(w), torch.ones_like(t), atol=1e-6)
 
 
+def test_strided_tables_equal_contiguous():
+    """Line tables read through views (the picture call's lli[:, 1:],
+    llf[:, 1:]) give what contiguous copies give."""
+    data, lli, llf = _case(5, 2, 1 << 17, 30, 2542.27)
+    data, lli, llf = (torch.from_numpy(a) for a in (data, lli, llf))
+    view_i, view_f = lli[:, 1:], llf[:, 1:]
+    assert not view_i.is_contiguous()
+    for kw in ({}, dict(col0=16, ncols=48)):
+        got = CR.resample_lines_batch(data, view_i, view_f, 910, 30, 2542.0,
+                                      **kw)
+        want = CR.resample_lines_batch(data, view_i.contiguous(),
+                                       view_f.contiguous(), 910, 30, 2542.0,
+                                       **kw)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('ncols,outwidth,st_nom,group', [
+    (910, 910, 2542.0, 128),       # NTSC picture: 4 warps a line
+    (48, 910, 2542.0, 32),         # burst window: a warp a line
+    (1135, 1135, 2560.0, 128),     # PAL width
+    (200, 910, 2542.0, 64),
+])
+def test_launch_plan_stages_nominal_lines(ncols, outwidth, st_nom, group):
+    """A group of warps a line, a whole number of lines a block, and a
+    span buffer that holds a line up to 1.25x nominal length (its taps
+    and the widening to 16-byte chunks) within the 48 KB a block has."""
+    g, cap = CR.launch_plan(ncols, outwidth, st_nom)
+    assert g == group and 128 % g == 0 and cap % 4 == 0
+    assert cap >= 1.25 * st_nom * (ncols - 1) / outwidth + 11
+    assert (128 // g) * cap * 4 <= 48 * 1024
+
+
+def _card_case(name):
+    """Inputs of a card case: the main paths' shapes, or tables that leave
+    the staged path (broken lines, lines past both row ends) or are read
+    through views."""
+    linelen, W, nlines = 2542.0, 910, 263
+    if name == 'pal':
+        linelen, W, nlines = 2560.0, 1135, 313
+    nsamp = 52 * 15328
+    data, lli, llf = _case(11, 4, nsamp, nlines, linelen)
+    if name == 'broken':
+        lli[:, [5, 6]] = lli[:, [6, 5]]          # steplen < 0
+        lli[:, 21:] += int(2 * linelen)          # a span past the buffer
+        llf[:, 40] = 7.5
+    if name == 'ends':
+        ll = np.arange(nlines + 4) * linelen - 1.5 * linelen
+        ll[nlines // 2:] += nsamp - nlines * linelen + 6000
+        lli = np.tile(np.floor(ll).astype(np.int32), (4, 1))
+        llf = np.tile((ll - np.floor(ll)).astype(np.float32), (4, 1))
+    t = [torch.from_numpy(a).cuda() for a in (data, lli, llf)]
+    if name == 'views':
+        t[1], t[2] = t[1][:, 1:], t[2][:, 1:]
+    return t, W, nlines, linelen
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain():
-    """On a card: the kernel at the main path's shapes against the plain
-    version on the same inputs (bit-equality expected; budget as above)."""
+@pytest.mark.parametrize('name,col0,ncols', [
+    ('picture', 0, None), ('burst', 16, 48), ('pal', 0, None),
+    ('broken', 0, None), ('broken', 16, 48), ('ends', 0, None),
+    ('ends', 16, 48), ('views', 0, None)])
+def test_cuda_kernel_matches_plain(name, col0, ncols):
+    """On a card: the kernel against the plain version on the same
+    inputs, bit for bit, at the main paths' shapes and where lines leave
+    the staged path."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
-    for outwidth, linelen, col0, ncols in ((910, 2542.0, 0, None),
-                                           (910, 2542.0, 16, 48)):
-        data, lli, llf = _case(11, 16, 52 * 15328, 263, linelen)
-        args = (torch.from_numpy(data).cuda(), torch.from_numpy(lli).cuda(),
-                torch.from_numpy(llf).cuda(), outwidth, 263, linelen)
-        before = CR.resample_lines_batch.launches
-        got = CR.resample_lines_batch(*args, col0=col0, ncols=ncols)
-        ref = CR.resample_lines_batch_plain(*args, col0=col0, ncols=ncols)
-        torch.cuda.synchronize()
-        assert CR.resample_lines_batch.launches == before + 1
-        d = (got - ref).abs()
-        assert float(d.max()) < TOL_MAX and float(d.mean()) < TOL_MEAN
+    (data, lli, llf), W, nlines, linelen = _card_case(name)
+    args = (data, lli, llf, W, nlines, linelen)
+    before = CR.resample_lines_batch.launches
+    got = CR.resample_lines_batch(*args, col0=col0, ncols=ncols)
+    ref = CR.resample_lines_batch_plain(*args, col0=col0, ncols=ncols)
+    torch.cuda.synchronize()
+    assert CR.resample_lines_batch.launches == before + 1
+    assert torch.equal(got, ref)
