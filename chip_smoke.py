@@ -27,7 +27,19 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      launches counted, every K2 launch on its row-gather path;
   8. one comb window of 4 device frames (a smooth texture added, so the
      flow is well posed) combed on the card and on the CPU;
-  9. the chain CLI (ldchain_torch.py) on the 10-frame capture.
+  9. the chain CLI (ldchain_torch.py) on the 10-frame capture;
+ 10. PAL decode path: a 40-frame `palbars` capture through the Framer
+     (batch 16, nblocks 56) from sample 2560*14 -- >= 24 frames with
+     consecutive CAV numbers, K1 launched once a batch (the picture call at
+     (16, 313, 1135); PAL has no burst passes);
+ 11. one PAL field batch on the card vs on the CPU, then under sync-debug
+     "error" mode;
+ 12. PAL chain path: 32 frames through Framer(fetch_picture=False) and
+     the dim-3 PAL comb in CombWindows (8, 3 in flight) -- every decoded
+     frame emitted once, in order (each frame is stamped with its index),
+     the flush tail included; K1 counted, K2 not launched;
+ 13. one PAL comb window of 4 device frames on the card vs on the CPU;
+ 14. both CLIs with -p on a 10-frame PAL .lds capture.
 The line before the last is the kernel JSON; the last line is the result.
 """
 
@@ -48,6 +60,13 @@ F32_FLOP_S = 67e12     # H100 SXM float32 outside the tensor cores
 # own dim-3 budget (tests/test_comb_batch.py:82-83: p99.9 <= 2 LSB, max <=
 # 16 LSB) and the flow within p99 0.01 px (tests/test_torch_optflow.py)
 COMB_P999, COMB_MAX, FLOW_P99 = 2, 16, 0.01
+# PAL comb card vs CPU (no flow; 1 LSB found against JAX on the CPU)
+PAL_COMB_P999, PAL_COMB_MAX = 1, 4
+PAL_START = 2560 * 14   # past the first vertical interval
+# picture rows that read a line the tail gap sanitizer rewrote: its running
+# sum reaches 25,600 samples, where one float32 step is 2^-9 px, and on
+# `palbars` (a full-amplitude subcarrier) one step is up to 8 LSB
+PAL_TAIL_ROWS, PAL_TAIL_MAX = 11, 16
 
 
 def fail(msg: str):
@@ -55,8 +74,11 @@ def fail(msg: str):
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str):
-    print(f'== {name}', flush=True)
+    print(f'== {name}  [{time.perf_counter() - T_START:.0f} s]', flush=True)
 
 
 def device_phase(torch):
@@ -423,29 +445,42 @@ def _k2_bytes(torch, op, idx, axis: int, got) -> int:
                 + got.numel())
 
 
-def main_path_phase(torch, np):
-    phase('4 decode path')
+# the decode paths: capture frames and pattern, nblocks, first sample,
+# frames to decode (and the least that must), K1 launches a batch (NTSC:
+# two burst windows and the picture; PAL: the picture)
+DECODE_PATHS = {
+    'NTSC': dict(title='4 decode path', ncap=48, pattern='ramp', nblocks=52,
+                 start=33046, want=40, least=32, k1_per_batch=3),
+    'PAL': dict(title='10 PAL decode path', ncap=40, pattern='palbars',
+                nblocks=56, start=PAL_START, want=32, least=24,
+                k1_per_batch=1),
+}
+
+
+def main_path_phase(torch, np, system='NTSC'):
+    p = DECODE_PATHS[system]
+    phase(p['title'])
     from ld_decode_tpu_torch.models import encode as E
     from ld_decode_tpu_torch.utils.params import DecoderConfig
     from ld_decode_tpu_torch.ops import filters as F
     from ld_decode_tpu_torch.tbc import cuda_resample as CR
     from ld_decode_tpu_torch.tbc import framer as FR
 
-    cfg = DecoderConfig(system='NTSC', freq_mhz=40.0)
+    cfg = DecoderConfig(system=system, freq_mhz=40.0)
     t0 = time.perf_counter()
-    cap = E.encode_frames(cfg, 48, E.EncodeSpec(pattern='ramp',
-                                                cav_start_frame=900))
-    print(f'synthesized 48 frames ({cap.shape[0]} samples) in '
-          f'{time.perf_counter() - t0:.1f} s')
+    cap = E.encode_frames(cfg, p['ncap'], E.EncodeSpec(
+        pattern=p['pattern'], cav_start_frame=900))
+    print(f'synthesized {p["ncap"]} {system} frames ({cap.shape[0]} samples) '
+          f'in {time.perf_counter() - t0:.1f} s')
     bank = F.make_demod_bank(cfg, np.complex64, device='cuda')
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     CR.resample_lines_batch.launches = 0
-    fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=52,
+    fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=p['nblocks'],
                    device='cuda')
     t0 = time.perf_counter()
-    rv = fr.readframe(None, 33046, True)
+    rv = fr.readframe(None, p['start'], True)
     if rv[0] is None:
         fail('warm-up frame did not decode')
     print(f'warm-up frame {fr.vbi.get("framenr")} in '
@@ -453,20 +488,21 @@ def main_path_phase(torch, np):
     sample = rv[2]
     frames = []
     spf = cfg.freq_hz / cfg.sys.fps
+    shape = (cfg.sys.frame_lines * cfg.sys.outlinelen,)
     t0 = time.perf_counter()
-    while len(frames) < 40:
+    while len(frames) < p['want']:
         rv = fr.readframe(None, sample, False)
         if rv[0] is None:
             break
         frames.append(fr.vbi.get('framenr'))
-        if rv[0].shape != (525 * 910,) or rv[1] is None or not len(rv[1]):
+        if rv[0].shape != shape or rv[1] is None or not len(rv[1]):
             fail(f'frame {len(frames)}: picture {rv[0].shape}, no audio')
         sample = rv[2]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = CR.resample_lines_batch.launches
     st = fr.prefetcher.stats
-    print(f'decoded {len(frames)} frames in {dt:.3f} s: '
+    print(f'decoded {len(frames)} {system} frames in {dt:.3f} s: '
           f'{len(frames) * spf / dt / 1e6:.2f} MSa/s sustained '
           f'({len(frames) / dt:.2f} frames/s; capture rate 40 MSa/s)')
     print(f'CAV frame numbers {frames[0]}..{frames[-1] if frames else None}')
@@ -475,28 +511,33 @@ def main_path_phase(torch, np):
     print('prefetcher stats', json.dumps(
         {k: (round(v, 4) if isinstance(v, float) else v)
          for k, v in st.items()}))
-    if len(frames) < 32:
+    if len(frames) < p['least']:
         fail(f'only {len(frames)} frames decoded')
     if any(b != a + 1 for a, b in zip(frames, frames[1:])) \
             or frames[0] is None:
         fail(f'CAV frame numbers not consecutive: {frames}')
-    expect = 3 * (st['batches'] + st['seq_decoded'])
-    print(f'K1 launches {launches}: 3 per batch x {st["batches"]} batches '
-          f'+ 3 per sequential field x {st["seq_decoded"]}')
+    per = p['k1_per_batch']
+    expect = per * (st['batches'] + st['seq_decoded'])
+    print(f'K1 launches {launches}: {per} per batch x {st["batches"]} '
+          f'batches + {per} per sequential field x {st["seq_decoded"]}')
     if launches != expect or launches == 0:
         fail(f'K1 launches {launches}, expected {expect}')
     return cfg, cap, bank, fr, launches
 
 
-def parity_phase(torch, np, cfg, cap, bank, fr):
-    phase('5 card vs cpu, one batch')
+def parity_phase(torch, np, cfg, bank, fr, title='5 card vs cpu, one batch',
+                 start=33046, nblk=52, tail_rows=0):
+    """One field batch on the card and on the CPU from the same locked
+    start.  tail_rows > 0 (PAL) holds the picture rows that read a
+    tail-sanitized line to PAL_TAIL_MAX and the rest to the usual budget."""
+    phase(title)
     from ld_decode_tpu_torch.ops import filters as F
     from ld_decode_tpu_torch.tbc import fused as FU
 
     fr.prefetcher.flush()
-    f0, rs0, _ = fr.readfield(None, 33046)
+    f0, rs0, _ = fr.readfield(None, start)
     rs0 = int(f0.readsample if f0.readsample >= 0 else rs0)
-    nblk, batch = 52, 4
+    batch = 4
     n_audio1 = nblk * bank.a_stage1_keep
     pitch = int(round(cfg.freq_hz / cfg.sys.fps / 2))
     cap_gpu = fr.prefetcher.capture
@@ -518,8 +559,11 @@ def parity_phase(torch, np, cfg, cap, bank, fr):
         fail(f'batch fields not valid: {g["meta_i"][:, 0]}')
     ll = lambda o: o['linelocs_i'].astype(np.float64) + o['linelocs_f']
     dll = float(np.abs(ll(g) - ll(c)).max())
-    dpic = np.abs(g['picture'][:, 24:].astype(np.int64)
-                  - c['picture'][:, 24:].astype(np.int64))
+    cut = cfg.sys.frame_lines // 2 - tail_rows
+    dpic = np.abs(g['picture'].astype(np.int64)
+                  - c['picture'].astype(np.int64))
+    dtail = dpic[:, cut:cfg.sys.frame_lines // 2]
+    dpic = dpic[:, 24:cut] if tail_rows else dpic[:, 24:]
     p999, pmax = float(np.percentile(dpic, 99.9)), int(dpic.max())
     arms = []
     for b in range(batch):
@@ -531,6 +575,14 @@ def parity_phase(torch, np, cfg, cap, bank, fr):
           f'counts, Philips codes and chain scalars equal')
     if dll > 0.02 or p999 > 2 or pmax > 4 or max(arms) > 0.6:
         fail('card vs cpu outside the budgets (0.02 px, 2/4 LSB, 0.6 LSB)')
+    if tail_rows:
+        print(f'the {tail_rows} tail-sanitized rows: max {int(dtail.max())} '
+              f'LSB (budget {PAL_TAIL_MAX}); columns 0/1 of rows 24+ hold '
+              f'no burst words')
+        if dtail.max() > PAL_TAIL_MAX:
+            fail('PAL tail rows outside their budget')
+        if np.isin(g['picture'][:, 24:cut, 0], (16384, 32768)).all():
+            fail('PAL picture carries burst flag words in column 0')
 
     dev = cap_gpu.device
     start0 = torch.full((), rs0, dtype=torch.int32, device=dev)
@@ -551,29 +603,44 @@ def parity_phase(torch, np, cfg, cap, bank, fr):
           'field_pipeline_batch')
 
 
-def cli_phase(np, cap, cfg):
-    phase('6 cli')
+def _write_capture(np, cap, cfg, d: str) -> str:
+    """The first 10 frames of `cap`: NTSC as .r16, PAL as .lds."""
     spf = int(cfg.freq_hz / cfg.sys.fps) + 1
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+    if cfg.system == 'PAL':
+        from ld_decode_tpu_torch.io.loaders import pack_data_4_40
+        path = os.path.join(d, 'cap.lds')
+        pack_data_4_40(cap[:10 * spf]).tofile(path)
+    else:
         path = os.path.join(d, 'cap.r16')
         (cap[:10 * spf].astype(np.int32) - 32768).astype('<i2').tofile(path)
+    return path
+
+
+def _run_cli(script: str, argv):
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, script)] + argv,
+                          capture_output=True, text=True, cwd=ROOT,
+                          timeout=600)
+    if proc.returncode != 0:
+        fail(f'{script} exit {proc.returncode}:\n{proc.stderr[-3000:]}')
+    return time.perf_counter() - t0
+
+
+def cli_phase(np, cap, cfg, title='6 cli'):
+    phase(title)
+    flags = ['-p'] if cfg.system == 'PAL' else []
+    want = 8 * cfg.sys.frame_lines * cfg.sys.outlinelen * 2
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
+        path = _write_capture(np, cap, cfg, d)
         out = os.path.join(d, 'out')
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable,
-                               os.path.join(ROOT, 'lddecode_torch.py'),
-                               path, out, '-l', '8', '-q'],
-                              capture_output=True, text=True, cwd=ROOT,
-                              timeout=600)
-        dt = time.perf_counter() - t0
-        if proc.returncode != 0:
-            fail(f'lddecode_torch.py exit {proc.returncode}:\n'
-                 f'{proc.stderr[-3000:]}')
+        dt = _run_cli('lddecode_torch.py', [path, out, '-l', '8', '-q']
+                      + flags)
         tbc = os.path.getsize(out + '.tbc')
         pcm = os.path.getsize(out + '.pcm')
-        print(f'lddecode_torch.py -l 8: {dt:.1f} s, .tbc {tbc} bytes, '
-              f'.pcm {pcm} bytes')
-        if tbc != 8 * 525 * 910 * 2 or pcm <= 0:
-            fail(f'.tbc {tbc} bytes (want {8 * 525 * 910 * 2}), .pcm {pcm}')
+        print(f'lddecode_torch.py {" ".join(flags + ["-l", "8"])}: {dt:.1f} '
+              f's, .tbc {tbc} bytes, .pcm {pcm} bytes')
+        if tbc != want or pcm <= 0:
+            fail(f'.tbc {tbc} bytes (want {want}), .pcm {pcm}')
 
 
 def chain_phase(torch, np, cfg, cap, bank):
@@ -701,30 +768,151 @@ def comb_parity_phase(torch, np, dev_frames):
         fail(f'flow card vs cpu: p99 {np.percentile(df, 99)} px')
 
 
-def chain_cli_phase(np, cap, cfg):
-    phase('9 chain cli')
-    spf = int(cfg.freq_hz / cfg.sys.fps) + 1
+def chain_cli_phase(np, cap, cfg, title='9 chain cli'):
+    phase(title)
+    pal = cfg.system == 'PAL'
+    flags = ['-p'] if pal else []
+    want = 6 * (576 * 1135 if pal else 480 * 744) * 3 * 2
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
-        path = os.path.join(d, 'cap.r16')
-        (cap[:10 * spf].astype(np.int32) - 32768).astype('<i2').tofile(path)
+        path = _write_capture(np, cap, cfg, d)
         out = os.path.join(d, 'out')
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable,
-                               os.path.join(ROOT, 'ldchain_torch.py'),
-                               path, out, '-l', '6', '--raw', '-q'],
-                              capture_output=True, text=True, cwd=ROOT,
-                              timeout=600)
-        dt = time.perf_counter() - t0
-        if proc.returncode != 0:
-            fail(f'ldchain_torch.py exit {proc.returncode}:\n'
-                 f'{proc.stderr[-3000:]}')
+        dt = _run_cli('ldchain_torch.py', [path, out, '-l', '6', '--raw',
+                                           '-q'] + flags)
         rgb = os.path.getsize(out + '.rgb')
         pcm = os.path.getsize(out + '.audio.pcm')
-        print(f'ldchain_torch.py -l 6: {dt:.1f} s, .rgb {rgb} bytes, '
-              f'.audio.pcm {pcm} bytes')
-        if rgb != 6 * 480 * 744 * 3 * 2 or pcm <= 0:
-            fail(f'.rgb {rgb} bytes (want {6 * 480 * 744 * 3 * 2}), '
-                 f'.audio.pcm {pcm}')
+        print(f'ldchain_torch.py {" ".join(flags + ["-l", "6"])}: {dt:.1f} '
+              f's, .rgb {rgb} bytes, .audio.pcm {pcm} bytes')
+        if rgb != want or pcm <= 0:
+            fail(f'.rgb {rgb} bytes (want {want}), .audio.pcm {pcm}')
+
+
+def pal_chain_phase(torch, np, cfg, cap, bank):
+    phase('12 PAL chain path')
+    from ld_decode_tpu_torch.audio.cx import CXExpander
+    from ld_decode_tpu_torch.comb.batch import CombWindows, PALCombBatch
+    from ld_decode_tpu_torch.comb.comb_pal import CombPALConfig
+    from ld_decode_tpu_torch.ops import cuda_gather as CG
+    from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    from ld_decode_tpu_torch.tbc import framer as FR
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=56,
+                   device='cuda', fetch_picture=False)
+    comb = PALCombBatch(CombPALConfig(dim=3), device='cuda')
+    cx = CXExpander()
+    rgbs, words, dev_frames = [], [], []
+    nframes, naudio = 0, 0
+
+    def emit(rgb, w):
+        rgbs.append(rgb)
+        words.append(w)
+
+    windows = CombWindows(comb, 8, 3, emit)
+    CR.resample_lines_batch.launches = 0
+    CG.take_along_axis.launches = 0
+    t0 = time.perf_counter()
+    t_half = t0
+    sample = PAL_START
+    for i in range(32):
+        if i == 16:
+            # two windows in: the plans, buffers and the prefetcher's first
+            # flushes are behind
+            torch.cuda.synchronize()
+            t_half = time.perf_counter()
+        rv = fr.readframe(None, sample, i == 0)
+        if rv[0] is None:
+            break
+        frame = rv[0].reshape(625, 1135)
+        if not isinstance(frame, torch.Tensor):
+            frame = torch.from_numpy(frame.astype(np.int32)).cuda()
+        elif len(dev_frames) < 4:
+            dev_frames.append(frame.clone())
+        # a PAL RGB frame carries no line-0 words, and the bars are the
+        # same in every frame: stamp the frame's index as the luma of a
+        # patch, so that the order of the emitted frames can be read
+        frame[200:216, 560:600] = 18000 + 1100 * i      # 4..95 IRE
+        windows.push(frame)
+        nframes += 1
+        if rv[1] is not None:
+            naudio += cx.process(np.asarray(rv[1]).ravel()).size
+        sample = rv[2]
+    windows.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k1, k2 = CR.resample_lines_batch.launches, CG.take_along_axis.launches
+    st = fr.prefetcher.stats
+    spf = cfg.freq_hz / cfg.sys.fps
+    print(f'PAL chain: {nframes} frames decoded, {len(rgbs)} RGB frames '
+          f'emitted in {dt:.3f} s: {len(rgbs) / dt:.2f} RGB frames/s, '
+          f'{nframes * spf / dt / 1e6:.2f} MSa/s of capture; '
+          f'{naudio} CX audio samples')
+    t_rest = t0 + dt - t_half
+    print(f'the last {nframes - 16} frames (decode, comb, and the drain of '
+          f'every window still in flight): {t_rest:.3f} s, '
+          f'{(nframes - 16) / t_rest:.2f} frames/s')
+    print(f'peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}'
+          f' MiB')
+    print('comb stats', json.dumps(
+        {k: (round(v, 4) if isinstance(v, float) else v)
+         for k, v in comb.stats.items()}))
+    if nframes < 16 or len(rgbs) != nframes:
+        fail(f'{len(rgbs)} RGB frames from {nframes} decoded (want every '
+             f'frame once, the flush tail included, >= 16)')
+    if any(r.shape != (576, 1135, 3) or r.dtype != np.uint16 for r in rgbs):
+        fail('an RGB frame is not (576, 1135, 3) uint16')
+    if any(w is not None for w in words):
+        fail('a PAL frame came with line-0 words')
+    # the stamped patch (frame rows 200.. -> RGB rows 176..): its green
+    # level rises by about the same step from each frame to the next (the
+    # darkest patches clip a little of their ringing at black)
+    level = [float(r[180:188, 568:590, 1].mean()) for r in rgbs]
+    steps = np.diff(level)
+    mid = float(np.median(steps))
+    print(f'order stamp: green {level[0]:.0f}..{level[-1]:.0f}, steps '
+          f'{steps.min():.0f}..{steps.max():.0f} (median {mid:.0f})')
+    if steps.min() < 0.5 * mid or steps.max() > 1.5 * mid:
+        fail(f'emitted frames out of order: patch levels {level}')
+    expect1 = st['batches'] + st['seq_decoded']
+    print(f'K1 launches {k1} (1 per batch x {st["batches"]} + 1 per '
+          f'sequential field x {st["seq_decoded"]}); K2 launches {k2} '
+          f'(the PAL comb has no flow)')
+    if k1 != expect1 or k1 == 0:
+        fail(f'K1 launches {k1}, expected {expect1}')
+    if k2 != 0:
+        fail(f'K2 launched {k2} times on the PAL chain')
+    if not naudio:
+        fail('no CX audio')
+    return k1, dev_frames
+
+
+def pal_comb_parity_phase(torch, np, dev_frames):
+    phase('13 PAL comb: card vs cpu, one window')
+    from ld_decode_tpu_torch.comb.batch import PALCombBatch
+    from ld_decode_tpu_torch.comb.comb_pal import CombPALConfig
+    if len(dev_frames) < 4:
+        fail(f'only {len(dev_frames)} device frames from the PAL chain')
+    frames = torch.stack(dev_frames)
+    outs = {}
+    for dev in ('cuda', 'cpu'):
+        comb = PALCombBatch(CombPALConfig(dim=3), device=dev)
+        t0 = time.perf_counter()
+        r, _ = comb.collect(comb.feed(frames.to(dev)))
+        r.append(comb.flush())
+        outs[dev] = (r, time.perf_counter() - t0)
+    (rg, tg), (rc, tc) = outs['cuda'], outs['cpu']
+    if len(rg) != len(rc) or len(rg) != 4:
+        fail(f'emissions: cuda {len(rg)}, cpu {len(rc)} (want 4: frame 0 2D, '
+             f'two 3D, the flush tail)')
+    print(f'window of 4: cuda {tg:.3f} s, cpu {tc:.3f} s')
+    for k, (a, b) in enumerate(zip(rg, rc)):
+        d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+        p999 = float(np.percentile(d, 99.9))
+        print(f'PAL RGB frame {k}: |d| > 1 LSB on {float((d > 1).mean()):.6f}'
+              f' of values, p99.9 {p999} max {int(d.max())} LSB')
+        if p999 > PAL_COMB_P999 or d.max() > PAL_COMB_MAX:
+            fail(f'PAL comb card vs cpu outside the budgets (p99.9 '
+                 f'{PAL_COMB_P999}, max {PAL_COMB_MAX} LSB)')
 
 
 def main():
@@ -749,25 +937,48 @@ def main():
     build_phase()
     kres = kernel_phase(torch, np)
     cfg, cap, bank, fr, launches = main_path_phase(torch, np)
-    parity_phase(torch, np, cfg, cap, bank, fr)
+    parity_phase(torch, np, cfg, bank, fr)
     cli_phase(np, cap, cfg)
     del fr
     k1, k2, dev_frames = chain_phase(torch, np, cfg, cap, bank)
     comb_parity_phase(torch, np, dev_frames)
     chain_cli_phase(np, cap, cfg)
+    del cap, bank
+
+    pcfg, pcap, pbank, pfr, pal_launches = main_path_phase(torch, np, 'PAL')
+    parity_phase(torch, np, pcfg, pbank, pfr,
+                 title='11 PAL: card vs cpu, one batch', start=PAL_START,
+                 nblk=56, tail_rows=PAL_TAIL_ROWS)
+    del pfr
+    pal_k1, pal_frames = pal_chain_phase(torch, np, pcfg, pcap, pbank)
+    pal_comb_parity_phase(torch, np, pal_frames)
+    cli_phase(np, pcap, pcfg, title='14 PAL cli')
+    chain_cli_phase(np, pcap, pcfg, title='14 PAL chain cli')
     if 'jax' in sys.modules:
         fail('jax was imported')
 
-    # the kernels line's launches are the chain path's (phase 7), this
-    # slice's main path; the decode path's K1 count is printed here
-    print(f'decode path K1 launches {launches}; chain path K1 {k1}, K2 {k2}')
+    # the kernels line: K1 at the PAL picture shape with the launches of
+    # this slice's main paths (PAL decode and PAL chain, each counted from
+    # 0), then K1 and K2 with the NTSC chain path's launches (phase 7)
+    print(f'NTSC decode path K1 launches {launches}; NTSC chain path K1 '
+          f'{k1}, K2 {k2}; PAL decode path K1 {pal_launches}; PAL chain '
+          f'path K1 {pal_k1}, K2 0')
     k1r = kres['K1']['ntsc picture']
+    k1p = kres['K1']['pal-width picture']
     k2r = kres['K2']['warp 2 fields x 252x840']
+    k1_common = dict(route='cuda',
+                     source='ld_decode_tpu_torch/csrc/resample_lines.cu',
+                     replaces='ld_decode_tpu/tbc/pallas_resample.py:205',
+                     ms_method=MS_METHOD)
     print(json.dumps({'kernels': [
-        dict(name='resample_lines_batch', route='cuda',
-             source='ld_decode_tpu_torch/csrc/resample_lines.cu',
-             replaces='ld_decode_tpu/tbc/pallas_resample.py:205',
-             launches=k1, ms_method=MS_METHOD, **k1r),
+        dict(name='resample_lines_batch', shape='pal picture (16, 313, 1135)',
+             launches=pal_k1, launches_by_path={
+                 'pal decode': pal_launches, 'pal chain': pal_k1,
+                 'ntsc decode': launches, 'ntsc chain': k1},
+             **k1_common, **k1p),
+        dict(name='resample_lines_batch[ntsc]',
+             shape='ntsc picture (16, 263, 910)', launches=k1, **k1_common,
+             **k1r),
         dict(name='take_along_axis', route='cuda',
              source='ld_decode_tpu_torch/csrc/take_along_axis.cu',
              replaces='scripts/probe_warp.py:118', launches=k2,

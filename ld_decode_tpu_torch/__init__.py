@@ -3,9 +3,10 @@
 The JAX package `ld_decode_tpu` stays the reference; this package mirrors
 its layout (ops/, tbc/, audio/, vbi/, io/, models/, utils/).  It imports
 neither jax nor the JAX package: the few numpy host modules it needs
-(params, log, loaders, metadata, despackle, encode and the Philips host
-slicer) are copies, which tests/test_torch_hostcopies.py holds equal to the
-originals.
+(params, log, loaders, metadata, despackle, encode, the Philips host
+slicer and the EFM digital-audio chain) are copies, which
+tests/test_torch_hostcopies.py and tests/test_torch_efm.py hold equal to
+the originals.
 """
 
 import torch

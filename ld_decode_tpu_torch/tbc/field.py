@@ -70,7 +70,7 @@ class FieldDecoder:
 
     def __init__(self, cfg: DecoderConfig, bank: DemodBank,
                  nblocks: int = 66, device=DEFAULT_DEVICE):
-        FU.require_ntsc(cfg)
+        FU.require_tbc(cfg)
         need_lines = cfg.sys.field_lines + 0.5 + 21
         window_lines = nblocks * cfg.block_keep / cfg.linelen_float
         if window_lines < need_lines:

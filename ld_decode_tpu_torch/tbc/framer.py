@@ -73,7 +73,7 @@ class Framer:
         per field.  fetch_picture=False is the chain mode: the fields'
         pictures stay on the device and readframe returns the woven frame
         as a device tensor (int32) for the comb."""
-        FU.require_ntsc(cfg)
+        FU.require_tbc(cfg)
         if batch <= 1:
             raise NotImplementedError(BATCH1_TODO)
         if (loader is None) == (capture is None):

@@ -1,11 +1,12 @@
-"""The NTSC field pipeline on the device (torch port of
+"""The NTSC and PAL field pipeline on the device (torch port of
 ld_decode_tpu/tbc/fused.py).
 
 `field_pipeline_batch` decodes a speculative batch of field windows in one
 call with no read-back to the host: demod, sync-peak NMS, device vsync
 voting and line numbering (tbc/sync_dev.py), hsync refinement, two burst
-passes, the picture resample, u16 scaling, audio stage 2 with the 48 kHz
-chase, and the on-device Philips slice.  The start and audio carries come
+passes (NTSC) or one pilot pass (PAL, tbc/pal.py), the picture resample,
+u16 scaling, audio stage 2 with the 48 kHz chase, and the on-device
+Philips slice.  The start and audio carries come
 in and go out as device scalars, so consecutive batches chain on the
 device.  Results come back as a dict of tensors (raw picture; the JAX
 package's transport codec and bundle packing are not part of the port).
@@ -40,14 +41,15 @@ from ld_decode_tpu_torch.tbc.cuda_resample import resample_lines_batch
 from ld_decode_tpu_torch.vbi.philips import slice_philips_dev
 
 PHILIPS_MARGIN = 16  # us beyond one line gathered for the VBI slicer
-PAL_TODO = ('PAL decode is not ported yet (ROADMAP.md Queue 1, item P1: '
-            'tbc/pal.py and the PAL branches of fused.py/framer.py)')
 
 
-def require_ntsc(cfg: DecoderConfig):
-    if cfg.system != 'NTSC':
-        raise NotImplementedError(PAL_TODO if cfg.system == 'PAL' else
-                                  f'system {cfg.system!r} has no TBC')
+def require_tbc(cfg: DecoderConfig):
+    """The laserdisc TBC decodes NTSC and PAL; the tape systems have their
+    own chain."""
+    if cfg.system not in ('NTSC', 'PAL'):
+        raise NotImplementedError(
+            f'system {cfg.system!r} has no laserdisc TBC (the tape decode, '
+            f'tape/vhs.py, is not ported: ROADMAP.md Queue 1, item C2)')
 
 
 def audio_maxt(cfg) -> int:
@@ -294,10 +296,16 @@ def _burst_pass(video, lli, llf, lc, cfg: DecoderConfig):
 
 def _refine_batch(video, ll1i, ll1f, linebad, lc, cfg: DecoderConfig,
                   colorphase: float):
-    """hsync refinement, two NTSC burst passes and the colour-phase shift
-    -> final split line locations and burst levels."""
-    require_ntsc(cfg)
+    """hsync refinement, then two NTSC burst passes and the colour-phase
+    shift, or one PAL pilot pass (burst levels zero) -> final split line
+    locations and burst levels."""
+    require_tbc(cfg)
     lli, llf, _bad = _hsync_refine(video, ll1i, ll1f, linebad, lc, cfg)
+    if cfg.system == 'PAL':
+        from ld_decode_tpu_torch.tbc import pal as PALK
+        lli, llf = PALK.refine_pilot(video['demod'], video['demod_05'], lli,
+                                     llf, cfg.linelen, cfg.freq_mhz)
+        return lli, llf, torch.zeros_like(llf)
     bl = None
     for _pass in range(2):
         lli, llf, bl = _burst_pass(video, lli, llf, lc, cfg)
@@ -320,7 +328,8 @@ def _picture_scaled(video, lli, llf, cfg: DecoderConfig):
 
 def _scale_u16(out, lc, burstlevel, cfg: DecoderConfig, colorlevel: float):
     """(B, max_lc, W) resampled picture -> u16 values as int32, with the
-    NTSC burst flag/level words in columns 0/1."""
+    burst flag/level words in columns 0/1 where `burstlevel` is given
+    (NTSC; a PAL line keeps its picture there)."""
     sp = cfg.sys
     reduced = (out - sp.ire0) / sp.hz_ire - sp.vsync_ire
     if cfg.system == 'NTSC':
@@ -422,7 +431,9 @@ def _finish_output(video, audio1, lli, llf, scaled, lc, audio_offset,
     slicer; False slices the Philips codes on the device."""
     Bn = lli.shape[0]
     dev = lli.device
-    picture = _scale_u16(scaled, lc, burstlevel, cfg, colorlevel)
+    picture = _scale_u16(scaled, lc,
+                         burstlevel if cfg.system == 'NTSC' else None, cfg,
+                         colorlevel)
 
     if audio1 is not None:
         a2l, a2r = audio_stage2(audio1['audio_left'], audio1['audio_right'],
@@ -569,7 +580,7 @@ def field_pipeline_batch(capture: torch.Tensor, start0, audio_offset0,
     (next_start0, next_offset0) come back as device scalars, so
     consecutive batches chain on the device.  Returns (outputs dict of
     (batch, ...) tensors, next_start0, next_offset0)."""
-    require_ntsc(cfg)
+    require_tbc(cfg)
     if valid_len is None:
         valid_len = capture.shape[0]
     dev = capture.device

@@ -3,14 +3,15 @@
 the device-resident full chain (torch port of ldchain_tpu.py).
 
 The TBC pictures stay on the card (`Framer(fetch_picture=False)`), the
-interlace weave runs there, and the batched NTSC comb (comb/batch.py,
-default dim 3 with Farnebäck optical flow) reads the woven frames where
-they are; only the RGB frames and the audio come to the host.
+interlace weave runs there, and the batched comb (comb/batch.py: NTSC,
+default dim 3 with Farnebäck optical flow; PAL with -p, default dim 3
+with the temporal ring, 1135 x 576 at 25 fps) reads the woven frames
+where they are; only the RGB frames and the audio come to the host.
 
 Same arguments as ldchain_tpu.py plus --device (default `cuda`; without a
-CUDA device it fails unless `--device cpu` asks for the CPU).  NTSC only:
-PAL (-p) and the EFM digital-audio decode (--efm) raise
-NotImplementedError naming their ROADMAP.md item.  Like ldchain_tpu.py,
+CUDA device it fails unless `--device cpu` asks for the CPU).  --efm also
+pulls the EFM digital audio out of the capture on the host
+(<out>.efm.pcm + <out>.subcode.log).  Like ldchain_tpu.py,
 `-l` stops on the frames written so far, so the audio may run a few frames
 past the video.
 """
@@ -19,9 +20,6 @@ import argparse
 import sys
 
 import numpy as np
-
-EFM_TODO = ('the EFM digital-audio decode is not ported (ROADMAP.md Queue 1, '
-            'item P3: audio/efm.py, circ.py, subcode.py)')
 
 
 def parse_args(argv=None):
@@ -32,7 +30,7 @@ def parse_args(argv=None):
     p.add_argument('out', help='output base name (.mp4 with ffmpeg, '
                                'else .rgb) + .audio.pcm')
     p.add_argument('-p', '--pal', action='store_true',
-                   help='source is PAL (not ported yet)')
+                   help='source is PAL')
     p.add_argument('-s', '--start', type=int, default=0,
                    help='rough jump to frame n of capture')
     p.add_argument('-S', '--seek', type=int, default=-1,
@@ -41,6 +39,12 @@ def parse_args(argv=None):
                    help='max output frames')
     p.add_argument('-d', '--dim', type=int, default=3,
                    help='comb dimensions (default 3, like encode-ntsc)')
+    p.add_argument('--no-pilot-notch', action='store_true',
+                   help='PAL: keep the 3.75 MHz pilot pattern in the picture '
+                        '(default removes it with a per-line notch)')
+    p.add_argument('--pal-colorlpf', action='store_true',
+                   help='PAL: post-demod chroma low-pass (the attic comb\'s '
+                        'FilterIQ capability, off by default)')
     p.add_argument('-F', '--no-opticalflow', action='store_true',
                    help='dim 3: K-map motion gate instead of Farneback '
                         'optical flow (comb -F)')
@@ -73,7 +77,8 @@ def parse_args(argv=None):
     p.add_argument('--raw', action='store_true',
                    help='write raw .rgb even when ffmpeg is available')
     p.add_argument('--efm', action='store_true',
-                   help='EFM digital-audio decode (not ported yet)')
+                   help='also decode the EFM digital-audio track to '
+                        '<out>.efm.pcm (+ <out>.subcode.log)')
     p.add_argument('--device', default='cuda',
                    help='torch device to run on (default cuda; pass '
                         '"--device cpu" to run on the CPU)')
@@ -85,14 +90,11 @@ def main(argv=None):
     args = parse_args(argv)
     from ld_decode_tpu_torch.utils import log
     log.configure_from_flags(quiet=args.quiet, debug=False)
-    if args.pal:
-        from ld_decode_tpu_torch.tbc.fused import PAL_TODO
-        raise NotImplementedError(PAL_TODO)
-    if args.efm:
-        raise NotImplementedError(EFM_TODO)
 
     from ld_decode_tpu_torch.audio.cx import CXExpander
-    from ld_decode_tpu_torch.comb.batch import CombWindows, NTSCCombBatch
+    from ld_decode_tpu_torch.comb.batch import (CombWindows, NTSCCombBatch,
+                                                PALCombBatch)
+    from ld_decode_tpu_torch.comb.comb_pal import CombPALConfig
     from ld_decode_tpu_torch.comb.comb_ntsc import (CombConfig,
                                                     PulldownAssembler)
     from ld_decode_tpu_torch.io import loaders as L
@@ -103,7 +105,7 @@ def main(argv=None):
     from ld_decode_tpu_torch.utils.params import DecoderConfig
 
     device = resolve(args.device, hint='--device cpu')
-    cfg = DecoderConfig(system='NTSC', freq_mhz=40.0)
+    cfg = DecoderConfig(system='PAL' if args.pal else 'NTSC', freq_mhz=40.0)
     bank = F.make_demod_bank(cfg, dtype=np.complex64, device=device)
     loader = L.loader_for_path(args.infile)
     samples_per_frame = int(cfg.freq_hz / cfg.sys.fps) + 1
@@ -121,35 +123,52 @@ def main(argv=None):
             return 1
     else:
         nextsample = args.start * samples_per_frame
+    start_first = nextsample              # EFM span start
 
-    # ----- comb (batched driver; same emission protocol as ldchain_tpu)
+    # ----- comb (batched; same emission protocol as ldchain_tpu)
     Y, X = cfg.sys.frame_lines, cfg.sys.outlinelen
-    nkw = dict(dim=args.dim, bw=args.bw, wide=args.wide,
-               opticalflow=not args.no_opticalflow)
+    kw = dict(dim=args.dim, bw=args.bw)
     if args.brightness is not None:
-        nkw['brightness'] = args.brightness
+        kw['brightness'] = args.brightness
     if args.black_ire is not None:
-        nkw['black_ire'] = args.black_ire
+        kw['black_ire'] = args.black_ire
     if args.nr_y is not None:
-        nkw['nr_y'] = args.nr_y
-    if args.nr_c is not None:
-        nkw['nr_c'] = args.nr_c
-    if args.threedcore is not None:
-        nkw['of_3dcore' if not args.no_opticalflow
-            else 'p_3dcore'] = args.threedcore
-    if args.threedrange is not None:
-        nkw['of_3drange' if not args.no_opticalflow
-            else 'p_3drange'] = args.threedrange
-    comb = NTSCCombBatch(CombConfig(**nkw), out8=args.write8bit,
-                         device=device)
-    width = X if args.wide else 744
-    fps = '24000/1001' if args.pulldown else '30000/1001'
+        kw['nr_y'] = args.nr_y
+    if args.pal:
+        if args.threedcore is not None:
+            kw['p_3dcore'] = args.threedcore
+        if args.threedrange is not None:
+            kw['p_3drange'] = args.threedrange
+        if args.no_pilot_notch:
+            kw['pilot_notch'] = False
+        if args.pal_colorlpf:
+            kw['colorlpf'] = True
+        pcfg = CombPALConfig(**kw)
+        comb = PALCombBatch(pcfg, out8=args.write8bit, device=device)
+        width, height, fps = X, pcfg.linesout, '25'
+    else:
+        kw.update(wide=args.wide, opticalflow=not args.no_opticalflow)
+        if args.nr_c is not None:
+            kw['nr_c'] = args.nr_c
+        if args.threedcore is not None:
+            kw['of_3dcore' if not args.no_opticalflow
+               else 'p_3dcore'] = args.threedcore
+        if args.threedrange is not None:
+            kw['of_3drange' if not args.no_opticalflow
+               else 'p_3drange'] = args.threedrange
+        comb = NTSCCombBatch(CombConfig(**kw), out8=args.write8bit,
+                             device=device)
+        width = X if args.wide else 744
+        height = 480
+        fps = '24000/1001' if args.pulldown else '30000/1001'
 
     audio_path = args.out + '.audio.pcm'
     out_audio = None if args.no_audio else open(audio_path, 'wb')
-    sink = VideoSink(args.out, width, 480, fps, write8bit=args.write8bit,
+    sink = VideoSink(args.out, width, height, fps, write8bit=args.write8bit,
                      force_raw=args.raw, quiet_ffmpeg=True)
-    pulldown = PulldownAssembler() if args.pulldown else None
+    # PAL frames carry no pulldown words (and its flush tail has none)
+    pulldown = PulldownAssembler() if args.pulldown and not args.pal \
+        else None
     cx = CXExpander()
 
     def emit(rgb, words):
@@ -182,6 +201,17 @@ def main(argv=None):
                 out_audio.write((out.astype(np.int32) - 32768
                                  ).astype('<i2').tobytes())
         windows.drain()
+        if args.efm:
+            from ld_decode_tpu_torch.audio import efm as EFM
+            nspan = (args.length + 2 if args.length is not None
+                     else max(sink.nframes + 8, 4)) * samples_per_frame
+            dec = EFM.extract_digital_audio(loader, fd, start_first, nspan,
+                                            cfg.freq_hz)
+            if dec is not None:
+                EFM.write_digital_audio_outputs(dec, args.out)
+                print(f'EFM: {dec["samples"].shape[0]} digital-audio '
+                      f'samples, {len(dec["q"])} valid Q packets',
+                      file=sys.stderr)
     finally:
         fd.close()
         sink.close()

@@ -5,9 +5,9 @@
 Same arguments as lddecode_tpu.py, minus --pic-mode (a transfer mode of
 the JAX package), plus --device.  Decodes on the CUDA device (--device,
 default `cuda`); without one it fails unless `--device cpu` asks for the
-CPU.  NTSC with batch > 1 only: PAL (-p), --batch 1 and the EFM
-digital-audio decode (--efm) raise NotImplementedError naming their
-ROADMAP.md item.
+CPU.  NTSC and PAL (-p); --efm also pulls the EFM digital audio out of the
+capture on the host (<out>.efm.pcm + <out>.subcode.log).  The batched path
+only: --batch 1 raises NotImplementedError naming its ROADMAP.md item.
 """
 
 import argparse
@@ -15,9 +15,6 @@ import os
 import sys
 
 import numpy as np
-
-EFM_TODO = ('the EFM digital-audio decode is not ported (ROADMAP.md Queue 1, '
-            'item P3: audio/efm.py, circ.py, subcode.py)')
 
 
 def parse_args(argv=None):
@@ -35,7 +32,7 @@ def parse_args(argv=None):
     p.add_argument('-l', '--length', type=int, default=None,
                    help='limit length to n frames')
     p.add_argument('-p', '--pal', action='store_true',
-                   help='source is in PAL format (not ported yet)')
+                   help='source is in PAL format')
     p.add_argument('-n', '--ntsc', action='store_true',
                    help='source is in NTSC format')
     p.add_argument('-c', '--cut', action='store_true',
@@ -65,7 +62,9 @@ def parse_args(argv=None):
     p.add_argument('-A', '--audio-only', action='store_true',
                    help='output only audio (no .tbc file)')
     p.add_argument('--efm', action='store_true',
-                   help='EFM digital-audio decode (not ported yet)')
+                   help='also decode the EFM digital-audio track to '
+                        '<out>.efm.pcm (+ <out>.subcode.log with the '
+                        'CRC-valid Q-channel packets)')
     p.add_argument('--device', default='cuda',
                    help='torch device to decode on (default cuda; pass '
                         '"--device cpu" to run on the CPU)')
@@ -83,14 +82,9 @@ def main(argv=None):
     if args.pal and args.ntsc:
         log.critical('Can only be PAL or NTSC')
         return 1
-    if args.pal:
-        from ld_decode_tpu_torch.tbc.fused import PAL_TODO
-        raise NotImplementedError(PAL_TODO)
     if args.batch <= 1:
         from ld_decode_tpu_torch.tbc.framer import BATCH1_TODO
         raise NotImplementedError(BATCH1_TODO)
-    if args.efm:
-        raise NotImplementedError(EFM_TODO)
 
     from ld_decode_tpu_torch.io import loaders as L
     from ld_decode_tpu_torch.utils.device import resolve
@@ -99,7 +93,7 @@ def main(argv=None):
     from ld_decode_tpu_torch.tbc import framer as FR
 
     device = resolve(args.device, hint='--device cpu')
-    cfg = DecoderConfig(system='NTSC', freq_mhz=40.0)
+    cfg = DecoderConfig(system='PAL' if args.pal else 'NTSC', freq_mhz=40.0)
     bank = F.make_demod_bank(
         cfg, dtype=np.complex128 if args.f64 else np.complex64,
         device=device)
@@ -131,6 +125,7 @@ def main(argv=None):
                 return 1
         else:
             nextsample = args.start * samples_per_frame
+        first_sample = nextsample             # EFM span start (below)
 
         if args.cut:
             lastsample = FR.findframe(fd, framer, args.end, nextsample)
@@ -174,6 +169,22 @@ def main(argv=None):
             if out_video is not None:
                 out_video.close()
             out_audio.close()
+
+        if args.efm:
+            # digital audio rides the composite below the video FM.  One
+            # decode on the host over the frame span the video pass used:
+            # the EFM frame stream and the CIRC interleave are continuous,
+            # so the span loads whole
+            from ld_decode_tpu_torch.audio import efm as EFM
+            dec = EFM.extract_digital_audio(
+                loader, fd, first_sample,
+                (num_frames + 2) * samples_per_frame, cfg.freq_hz)
+            if dec is None:
+                log.critical('EFM: no samples readable at decode start')
+                return 1
+            EFM.write_digital_audio_outputs(dec, args.outfile)
+            log.info(f'EFM: {dec["samples"].shape[0]} digital-audio '
+                     f'samples, {len(dec["q"])} valid Q packets')
 
     return 0
 

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Where the time goes on the card: the PyTorch port's decode path
-(Framer, batch 16, nblocks 52, NTSC at 40 MSa/s) and, with --comb, one
-window of the chain's dim-3 optical-flow comb, under torch.profiler.
+(Framer, batch 16, 40 MSa/s; NTSC with nblocks 52, or with --pal PAL with
+nblocks 56 on a `palbars` capture) and, with --comb, one window of the
+chain's dim-3 comb (NTSC: optical flow; PAL: the temporal ring), under
+torch.profiler.
 
-    python3 scripts/profile_torch.py [--frames 16] [--comb] [--trace out.json]
+    python3 scripts/profile_torch.py [--pal] [--frames 16] [--comb]
+                                     [--trace out.json]
 
 Prints the card's name and power limit, then for each profiled window its
 wall time, the device's busy and idle share (summed kernel and copy time
@@ -28,8 +31,9 @@ from torch.autograd import DeviceType
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ld_decode_tpu_torch.comb.batch import (  # noqa: E402
-    CombWindows, NTSCCombBatch)
+    CombWindows, NTSCCombBatch, PALCombBatch)
 from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig  # noqa: E402
+from ld_decode_tpu_torch.comb.comb_pal import CombPALConfig  # noqa: E402
 from ld_decode_tpu_torch.models import encode as E  # noqa: E402
 from ld_decode_tpu_torch.ops import filters as F  # noqa: E402
 from ld_decode_tpu_torch.tbc import framer as FR  # noqa: E402
@@ -89,6 +93,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--frames', type=int, default=16,
                     help='frames decoded inside the profiled window')
+    ap.add_argument('--pal', action='store_true',
+                    help='profile the PAL decode (and PAL comb) instead')
     ap.add_argument('--comb', action='store_true',
                     help='also profile one comb window of 8 frames')
     ap.add_argument('--trace', default=None,
@@ -101,14 +107,18 @@ def main():
                          text=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
 
-    cfg = DecoderConfig(system='NTSC', freq_mhz=40.0)
+    system, pattern, nblocks, start = (
+        ('PAL', 'palbars', 56, 2560 * 14) if args.pal
+        else ('NTSC', 'ramp', 52, 33046))
+    cfg = DecoderConfig(system=system, freq_mhz=40.0)
+    Y, X = cfg.sys.frame_lines, cfg.sys.outlinelen
     nwarm = 16
     cap = E.encode_frames(cfg, nwarm + args.frames + 8,
-                          E.EncodeSpec(pattern='ramp', cav_start_frame=900))
+                          E.EncodeSpec(pattern=pattern, cav_start_frame=900))
     bank = F.make_demod_bank(cfg, np.complex64, device='cuda')
-    fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=52,
+    fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=nblocks,
                    device='cuda')
-    rv = fr.readframe(None, 33046, True)
+    rv = fr.readframe(None, start, True)
     for _ in range(nwarm):
         rv = fr.readframe(None, rv[2], False)
 
@@ -124,32 +134,36 @@ def main():
     wall, events = profiled(decode, args.trace)
     batches = fr.prefetcher.stats['batches'] - stats0['batches']
     spf = cfg.freq_hz / cfg.sys.fps
-    print(f'decode: {args.frames} frames, '
+    print(f'{system} decode: {args.frames} frames, '
           f'{args.frames * spf / wall / 1e6:.2f} MSa/s under the profiler')
     report('decode window', wall, events, batches, 'batch')
 
     if args.comb:
-        # 16 woven device frames of the chain, pushed through the chain's
-        # window loop (windows of 8, none left in flight): the first
-        # window warms the comb (frame 0 dropped, the flow carry seeded),
-        # the second is profiled
-        chain = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=52,
+        # 24 woven device frames of the chain, pushed through the chain's
+        # window loop (windows of 8, none left in flight): the first two
+        # windows warm the comb (NTSC: frame 0 dropped, the flow carry
+        # seeded; PAL: frame 0 combed 2D, two frames left pending; from
+        # the second window on every window has the same shape, so its
+        # FFT plans and buffers exist), the third is profiled
+        chain = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=nblocks,
                           device='cuda', fetch_picture=False)
-        frames, s = [], 33046
-        for i in range(16):
+        frames, s = [], start
+        for i in range(24):
             rv = chain.readframe(None, s, i == 0)
-            frames.append(rv[0].reshape(525, 910))
+            frames.append(rv[0].reshape(Y, X))
             s = rv[2]
-        comb = NTSCCombBatch(CombConfig(dim=3), device='cuda')
+        comb = PALCombBatch(CombPALConfig(dim=3), device='cuda') if args.pal \
+            else NTSCCombBatch(CombConfig(dim=3), device='cuda')
         out = []
         windows = CombWindows(comb, 8, 0, lambda rgb, words: out.append(rgb))
-        for f in frames[:8]:
+        for f in frames[:16]:
             windows.push(f)
         out.clear()
-        wall, events = profiled(lambda: [windows.push(f) for f in frames[8:]])
+        wall, events = profiled(lambda: [windows.push(f)
+                                         for f in frames[16:]])
         n = len(out)
-        print(f'comb: {n} RGB frames, {n / wall:.2f} frames/s under the '
-              f'profiler')
+        print(f'{system} comb: {n} RGB frames, {n / wall:.2f} frames/s '
+              f'under the profiler')
         report('comb window', wall, events, n, 'RGB frame')
 
 

@@ -6,9 +6,9 @@ picture p99.9 <= 2 / max <= 4 LSB, audio 0.6 LSB rms), and the comb and
 the CX expander carry that on, so the chain is held to: equal frame
 counts, RGB >> 8 p99.9 <= 1 and max <= 4, CX audio <= 1 LSB rms (ticks
 where the 48 kHz chase picked the neighbouring sample counted apart, as in
-tests/torch_parity.py).  One deliberate divergence: where ldchain_tpu.py
-would emit a flush tail with words=None (ldchain_tpu.py:239, PAL only),
-the port has no tail, because its only comb (NTSC) has no flush.
+tests/torch_parity.py).  Like ldchain_tpu.py:234-239 the port ends a PAL
+dim-3 stream with the comb's flush tail (the final frame, 2D, words None);
+the NTSC comb has no flush.
 
 The capture is tests/test_chain_cli.py:27-30's ramp at 6 frames, not 5.
 Five frames decode to three, which the JAX flow comb takes as one window
@@ -138,8 +138,104 @@ def test_chain_cli_defaults_to_the_card(lds, tmp_path):
         ldchain_torch.main([str(lds), str(tmp_path / 'o'), '-q'])
 
 
-def test_chain_cli_unported_modes_raise(lds, tmp_path):
-    with pytest.raises(NotImplementedError, match='PAL'):
-        ldchain_torch.main([str(lds), str(tmp_path / 'o'), '-p'])
-    with pytest.raises(NotImplementedError, match='EFM'):
-        ldchain_torch.main([str(lds), str(tmp_path / 'o'), '--efm'])
+FRAME_PAL = 576 * 1135 * 3
+
+
+@pytest.fixture(scope='module')
+def pal_lds(tmp_path_factory):
+    """The 4-frame `palbars` capture of tests/test_chain_cli.py:62-70."""
+    cfg = DecoderConfig(system='PAL', freq_mhz=40.0)
+    cap = JE.encode_frames(cfg, 4, JE.EncodeSpec(pattern='palbars',
+                                                 cav_start_frame=900))
+    path = tmp_path_factory.mktemp('chainpal') / 'cap.lds'
+    path.write_bytes(JL.pack_data_4_40(cap).tobytes())
+    return path
+
+
+PAL_COMMON = ['-p', '--comb-batch', '3', '--depth', '1', '--batch', '5',
+              '-q', '--raw']
+
+
+def _frames_off_budget(rj, rt):
+    """Indices of the frames whose RGB >> 8 is outside p99.9 <= 1 / max
+    <= 4."""
+    off = []
+    for k in range(rj.size // FRAME_PAL):
+        a, b = (r[k * FRAME_PAL:(k + 1) * FRAME_PAL] >> 8 for r in (rj, rt))
+        d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+        if np.percentile(d, 99.9) > 1 or d.max() > 4:
+            off.append(k)
+    return off
+
+
+@pytest.mark.parametrize('dim', ['2', '3'])
+def test_chain_cli_pal_against_jax(pal_lds, tmp_path, dim, monkeypatch):
+    """`-p -d 2` and `-d 3` (the flush tail included): equal frame counts,
+    1135 x 576 RGB, and the budgets of the module docstring.
+
+    The comb's V-switch vote is a tie by construction
+    (tests/test_torch_comb_pal.py): the port always takes the first
+    candidate, the JAX package's compiled window lets rounding noise pick
+    another one for some frames of this capture.  A frame that is off the
+    budget must therefore be inside it with the port's vote forced to one
+    of the other three candidates; at least one frame agrees as it is."""
+    from ld_decode_tpu_torch.comb import comb_pal as TP
+    monkeypatch.setattr(shutil, 'which', lambda *_: None)
+    flags = PAL_COMMON + ['-d', dim]
+    out_j, out_t = str(tmp_path / 'jax'), str(tmp_path / 'torch')
+    with jax.enable_x64(False):
+        assert ldchain_tpu.main([str(pal_lds), out_j] + flags) == 0
+    assert ldchain_torch.main([str(pal_lds), out_t, '--device', 'cpu']
+                              + flags) == 0
+    rj, rt = (np.fromfile(o + '.rgb', np.uint16) for o in (out_j, out_t))
+    assert rj.size == rt.size and rj.size >= 2 * FRAME_PAL
+    assert rj.size % FRAME_PAL == 0
+    off = _frames_off_budget(rj, rt)
+    assert len(off) < rj.size // FRAME_PAL
+    for k in (1, 2, 3):
+        if not off:
+            break
+        monkeypatch.setattr(
+            TP, 'vswitch_choice',
+            lambda u, v, k=k: torch.full(u.shape[:-2], k, dtype=torch.long))
+        out_k = str(tmp_path / f'torch{k}')
+        assert ldchain_torch.main([str(pal_lds), out_k, '--device', 'cpu',
+                                   '--no-audio'] + flags) == 0
+        rk = np.fromfile(out_k + '.rgb', np.uint16)
+        still = set(_frames_off_budget(rj, rk))
+        off = [f for f in off if f in still]
+    assert not off, off
+    aj, at = (np.fromfile(o + '.audio.pcm', '<i2') for o in (out_j, out_t))
+    assert aj.size == at.size and aj.size > 3000
+    da = np.abs(at.astype(np.float64) - aj)
+    picks = da > 8
+    assert picks.mean() <= 0.005
+    assert np.sqrt(np.mean(da[~picks] ** 2)) <= 1.0
+
+
+def test_chain_cli_pal_options_and_efm(pal_lds, tmp_path, monkeypatch):
+    """The PAL flags reach the comb (-B gives grey, --no-pilot-notch and
+    --pal-colorlpf change the picture), -8 writes bytes, and --efm on a
+    capture with no EFM carrier writes its two files as ldchain_tpu.py
+    does (tests/test_chain_cli.py:47-49)."""
+    monkeypatch.setattr(shutil, 'which', lambda *_: None)
+    base = [str(pal_lds), None, '--device', 'cpu', '-p', '-d', '2', '-l',
+            '1', '--batch', '5', '-q', '--raw', '--no-audio']
+    outs = {}
+    for name, flags in (('plain', []), ('bw', ['-B']),
+                        ('nonotch', ['--no-pilot-notch']),
+                        ('lpf', ['--pal-colorlpf']),
+                        ('b8', ['-8', '--efm'])):
+        base[1] = str(tmp_path / name)
+        assert ldchain_torch.main(base + flags) == 0
+        outs[name] = np.fromfile(
+            base[1] + '.rgb', np.uint8 if name == 'b8' else np.uint16)
+    assert outs['plain'].size == FRAME_PAL == outs['b8'].size
+    grey = outs['bw'].reshape(-1, 3).astype(np.int64)
+    assert np.ptp(grey, axis=1).max() == 0
+    for name in ('nonotch', 'lpf'):
+        assert not np.array_equal(outs[name], outs['plain'])
+    np.testing.assert_array_equal(outs['b8'],
+                                  (outs['plain'] >> 8).astype(np.uint8))
+    assert (tmp_path / 'b8.efm.pcm').exists()
+    assert (tmp_path / 'b8.subcode.log').read_text().startswith('# frames=')

@@ -1,5 +1,6 @@
 """PyTorch port: lddecode_torch.py against lddecode_tpu.py --pic-mode raw on
-a small synthetic .r16 capture (frame limit and frame-accurate seek)."""
+a small synthetic .r16 capture (frame limit and frame-accurate seek), and
+`-p` on a PAL `palbars` .lds capture."""
 
 import jax
 import numpy as np
@@ -11,7 +12,8 @@ import lddecode_tpu
 from ld_decode_tpu.models import encode as JE
 from ld_decode_tpu.utils.params import DecoderConfig
 
-from torch_parity import assert_audio_close, assert_picture_close
+from torch_parity import (assert_audio_close, assert_pal_picture,
+                          assert_picture_close)
 
 torch.set_num_threads(2)
 
@@ -66,12 +68,33 @@ def test_cli_seek(r16, tmp_path):
 
 
 def test_cli_unported_modes_raise(r16, tmp_path):
-    with pytest.raises(NotImplementedError, match='PAL'):
-        lddecode_torch.main([str(r16), str(tmp_path / 'o'), '-p'])
     with pytest.raises(NotImplementedError, match='batch 1'):
         lddecode_torch.main([str(r16), str(tmp_path / 'o'), '--batch', '1'])
-    with pytest.raises(NotImplementedError, match='EFM'):
-        lddecode_torch.main([str(r16), str(tmp_path / 'o'), '--efm'])
+    assert lddecode_torch.main([str(r16), str(tmp_path / 'o'), '-p', '-n',
+                                '--device', 'cpu', '-q']) == 1
+
+
+def test_cli_pal_against_jax(tmp_path):
+    """`-p` on a 4-frame `palbars` .lds: the .tbc has the size and the
+    line-0 words of lddecode_tpu.py's, the picture is within the budget of
+    tests/test_torch_pal.py (the rows that read a tail-sanitized line held
+    apart), the .pcm within the audio budget."""
+    from ld_decode_tpu.io import loaders as JL
+    cfg = DecoderConfig(system='PAL', freq_mhz=40.0)
+    cap = JE.encode_frames(cfg, 4, JE.EncodeSpec(pattern='palbars',
+                                                 cav_start_frame=900))
+    lds = tmp_path / 'cap.lds'
+    lds.write_bytes(JL.pack_data_4_40(cap).tobytes())
+    (tj, pj), (tt, pt) = _run_both(lds, tmp_path, ['-p', '-l', '2'])
+    n = 625 * 1135
+    assert tj.size == tt.size == 2 * n
+    for f in range(2):
+        a = tj[f * n:(f + 1) * n].reshape(625, 1135)
+        b = tt[f * n:(f + 1) * n].reshape(625, 1135)
+        np.testing.assert_array_equal(a[0, :16], b[0, :16])
+        assert_pal_picture(b, a, per_row=2)
+    assert tt[15] >= 900 and tt[n + 15] == tt[15] + 1   # CAV frame numbers
+    assert_audio_close(pt, pj)
 
 
 def test_cli_defaults_to_the_card(r16, tmp_path):

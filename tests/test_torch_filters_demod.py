@@ -113,3 +113,33 @@ def test_demod_stream_rejects_wrong_length(tcfg, capture):
     with pytest.raises(ValueError, match='need exactly'):
         TD.demod_stream(torch.from_numpy(capture[:-1].astype(np.float32)),
                         tbank, tcfg, NBLOCKS, 1.0)
+
+
+def test_pal_bank_bit_exact_and_pilot_tap():
+    """The PAL bank (with its pilot filters) equals the JAX bank bit for
+    bit, and the PAL demod's taps, the pilot tap's source `demod_05`
+    among them, match JAX."""
+    cfg = DecoderConfig(system='PAL', freq_mhz=40.0)
+    tcfg = TConfig(system='PAL', freq_mhz=40.0)
+    with jax.enable_x64(False):
+        jbank = JF.make_demod_bank(cfg, np.complex64)
+        arrays, static = _jax_leaves(jbank)
+    tbank = TF.make_demod_bank(tcfg, np.complex64, device='cpu')
+    _assert_bank_equal(tbank, arrays)
+    for n in TF.STATIC_NAMES:
+        assert getattr(tbank, n) == static[n], n
+    pilot = [n for n in TF.FILTER_NAMES if 'pilot' in n]
+    assert pilot and all(arrays[n] is not None for n in pilot), pilot
+
+    cap = E.encode_frames(cfg, 1, E.EncodeSpec(pattern='palbars',
+                                               cav_start_frame=900))
+    cap = cap[2560 * 14:2560 * 14 + JD.stream_len(cfg, NBLOCKS)]
+    with jax.enable_x64(False):
+        jv, _ = JD.demod_stream(jnp.asarray(cap), jbank, cfg, NBLOCKS,
+                                jnp.float32(1.0))
+        jv = {k: np.asarray(v) for k, v in jv.items()}
+    tv, _ = TD.demod_stream(torch.from_numpy(cap.astype(np.float32)), tbank,
+                            tcfg, NBLOCKS, 1.0)
+    assert set(jv) == set(tv) and 'demod_05' in tv
+    for k in jv:
+        assert np.abs(tv[k].numpy() - jv[k]).max() <= F32_TOL * np.ptp(jv[k]), k

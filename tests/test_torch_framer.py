@@ -88,11 +88,22 @@ def test_framer_rejects_unported_modes():
     with pytest.raises(NotImplementedError, match='batch 1'):
         TFR.Framer(tcfg, bank, capture=np.zeros(10, np.uint16), batch=1,
                    device='cpu')
-    pcfg = TConfig(system='PAL')
-    with pytest.raises(NotImplementedError, match='PAL'):
-        TFR.Framer(pcfg, TF.make_demod_bank(pcfg, device='cpu'),
-                   capture=np.zeros(10, np.uint16), batch=8,
+    # the tape systems have no laserdisc TBC
+    vcfg = TConfig(system='VHS')
+    with pytest.raises(NotImplementedError, match='C2'):
+        TFR.Framer(vcfg, bank, capture=np.zeros(10, np.uint16), batch=8,
                    device='cpu')
+
+
+def test_framer_takes_pal():
+    """PAL builds on the same Framer (the decode itself is held to JAX in
+    tests/test_torch_pal.py): 625 x 1135 frames, 25 fps CLV numbering,
+    800,000-sample field pitch, the default 66-block window."""
+    pcfg = TConfig(system='PAL')
+    fr = TFR.Framer(pcfg, TF.make_demod_bank(pcfg, device='cpu'),
+                    capture=np.zeros(10, np.uint16), batch=8, device='cpu')
+    assert (fr.outlines, fr.outwidth, fr.clvfps) == (625, 1135, 25)
+    assert fr.prefetcher.field_pitch == 800000 and fr.nblocks == 66
 
 
 def test_entry_points_default_to_the_card():

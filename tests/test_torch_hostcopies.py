@@ -110,6 +110,47 @@ def test_metadata_words_equal():
             JM.frame_metadata_words(fields, vbi, cfg_j))
 
 
+def _pal_field(rng, istop, framenr, white):
+    pic = rng.integers(256, 0xd300, 313 * 1135).astype(np.uint16)
+    if white:
+        pic[10 * 1135 + 2:10 * 1135 + 500] = 0xd000
+    lc = {19: [15, 8, 0, 9, 0, framenr % 10] if framenr else None,
+          20: [8, 13, 12, 1, 2, 3], 21: None}
+    return types.SimpleNamespace(
+        linecode=lc, vbi=JPH.interpret_philips(lc), dspicture=pic,
+        linecount=313 if istop else 312, white_flag=None)
+
+
+def test_metadata_words_equal_pal():
+    """PAL: Philips code lines 19-21, the PAL scale in the white-flag
+    threshold, 313/312-line fields."""
+    rng = np.random.default_rng(14)
+    cfg_t, cfg_j = TP.DecoderConfig(system='PAL'), JP.DecoderConfig(
+        system='PAL')
+    assert tuple(cfg_t.sys.philips_codelines) == (19, 20, 21)
+    for white in (False, True):
+        fields = [_pal_field(rng, True, 903, white),
+                  _pal_field(rng, False, 0, False)]
+        vbi = dict(fields[0].vbi)
+        got = TM.frame_metadata_words(fields, vbi, cfg_t)
+        np.testing.assert_array_equal(
+            got, JM.frame_metadata_words(fields, vbi, cfg_j))
+        kw = dict(out_scale=(0xd300 - 0x0100) / (100 + 300 / 7), offset=256,
+                  vsync_ire=-300 / 7)
+        assert TM.white_flag(fields[0].dspicture, 1135, 313, **kw) == white \
+            == JM.white_flag(fields[0].dspicture, 1135, 313, **kw)
+
+
+def test_despackle_equal_pal():
+    rng = np.random.default_rng(15)
+    frame = rng.integers(0x2000, 0xb000, 625 * 1135).astype(np.uint16)
+    frame[rng.integers(0, frame.size, 300)] = 0      # rot hits
+    scale = (0xd300 - 0x0100) / (100 + 300 / 7)
+    np.testing.assert_array_equal(
+        t_despackle(frame.copy(), 1135, scale, 256, -300 / 7),
+        j_despackle(frame.copy(), 1135, scale, 256, -300 / 7))
+
+
 def test_despackle_equal():
     rng = np.random.default_rng(11)
     frame = rng.integers(0x2000, 0xb000, 525 * 910).astype(np.uint16)

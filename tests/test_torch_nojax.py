@@ -30,7 +30,12 @@ def test_port_sources_import_no_jax():
             'ld_decode_tpu_torch/ops/gather.py',
             'ld_decode_tpu_torch/ops/cuda_gather.py',
             'ld_decode_tpu_torch/audio/cx.py',
-            'ld_decode_tpu_torch/io/export_sink.py'} <= names
+            'ld_decode_tpu_torch/io/export_sink.py',
+            'ld_decode_tpu_torch/tbc/pal.py',
+            'ld_decode_tpu_torch/comb/comb_pal.py',
+            'ld_decode_tpu_torch/audio/efm.py',
+            'ld_decode_tpu_torch/audio/circ.py',
+            'ld_decode_tpu_torch/audio/subcode.py'} <= names
     for path in PORT_FILES:
         with open(path) as f:
             m = FORBIDDEN.search(f.read())
@@ -45,13 +50,13 @@ import numpy as np
 import torch
 import lddecode_torch
 import ldchain_torch
-from ld_decode_tpu_torch.audio import cx
-from ld_decode_tpu_torch.comb import batch, comb_ntsc, optflow
+from ld_decode_tpu_torch.audio import circ, cx, efm, subcode
+from ld_decode_tpu_torch.comb import batch, comb_ntsc, comb_pal, optflow
 from ld_decode_tpu_torch.io import export_sink
 from ld_decode_tpu_torch.models import encode as E
 from ld_decode_tpu_torch.ops import cuda_gather
 from ld_decode_tpu_torch.ops import demod as D, filters as F
-from ld_decode_tpu_torch.tbc import cuda_resample as CR, framer, fused
+from ld_decode_tpu_torch.tbc import cuda_resample as CR, framer, fused, pal
 from ld_decode_tpu_torch.utils.params import DecoderConfig
 cfg = DecoderConfig()
 cap = E.encode_frames(cfg, 1, E.EncodeSpec(pattern='flat50'))
@@ -75,6 +80,24 @@ flow = optflow.calc_optical_flow_farneback(img, np.roll(img, 1, axis=1),
 assert flow.shape == (63, 210, 2) and torch.isfinite(flow).all()
 assert abs(float(flow[20:40, 40:160, 0].median()) - 1) < 0.1
 assert cuda_gather.take_along_axis.launches == 0
+# PAL: the pilot pass on a synthetic 3.75 MHz pilot, the comb on a grey frame
+t = np.arange(2560 * 8)
+pilot = torch.from_numpy((2e5 * np.sin(2 * np.pi * t * 3.75 / 40)
+                          ).astype(np.float32))[None]
+pli = torch.tensor([[3000 + 2560 * k for k in range(6)]], dtype=torch.int32)
+li, lf = pal.refine_pilot(pilot, torch.zeros_like(pilot), pli,
+                          torch.zeros((1, 6)), 2560, 40.0)
+assert li.shape == (1, 6) and torch.isfinite(lf).all()
+assert (lf != 0).any()
+rgb, ang = comb_pal.comb_pal_frame(
+    torch.full((625, 1135), 20000, dtype=torch.int32),
+    comb_pal.CombPALConfig(dim=2))
+assert rgb.shape == (576, 1135, 3) and int(rgb[300, 500].min()) > 5000
+assert int(rgb[300, 500].max() - rgb[300, 500].min()) == 0
+q = subcode.encode_q_position(1, 1, 10, 20)
+assert subcode.decode_q(q) is not None
+assert efm.EFM_DECODE[efm.EFM_CODES[77]] == 77
+assert circ.circ_encode(np.zeros((4, 24), np.uint8)).shape[1] == 32
 assert not [m for m, mod in sys.modules.items() if mod is not None
             and (m in ('jax', 'ld_decode_tpu')
                  or m.startswith(('jax.', 'ld_decode_tpu.')))]

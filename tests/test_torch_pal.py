@@ -1,0 +1,422 @@
+"""PyTorch port, PAL decode: the pilot refinement (tbc/pal.py), the PAL
+vote and line numbering, one whole PAL `field_pipeline_batch`, and the
+Framer, against the JAX package on a `palbars` capture.
+
+Budgets are those of the NTSC tests (tests/torch_parity.py): integer
+decisions exact, line locations <= 0.02 px, picture rows >= 24 p99.9 <= 2
+and max <= 4 LSB, audio <= 0.6 LSB rms with the neighbouring-sample ticks
+counted apart.
+
+One place needs its own line.  The tail gap sanitizer of `_hsync_refine`
+(JAX and port alike) rewrites the last 10 lines of a field as a running sum
+that reaches 25,600 samples, where one float32 step is 2^-9 px: an input
+difference of 4e-5 px (the FFTs' rounding) can move such a line by one
+step.  On `palbars` the full-amplitude subcarrier is as steep as 10^4 LSB a
+pixel, so those rows differ by up to 8 LSB where the rest of the field
+stays within 4.  The tail rows are held apart (tests/torch_parity.py::
+assert_pal_picture): locations to 2^-9 px (well inside the 0.02 px budget),
+picture to TAIL_MAX."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ld_decode_tpu.models import encode as E
+from ld_decode_tpu.ops import filters as JF
+from ld_decode_tpu.tbc import framer as JFR
+from ld_decode_tpu.tbc import fused as JFU
+from ld_decode_tpu.tbc import pal as JPAL
+from ld_decode_tpu.tbc import sync as JS
+from ld_decode_tpu.tbc import sync_dev as JSD
+from ld_decode_tpu.utils.params import DecoderConfig
+from ld_decode_tpu_torch.ops import filters as TF
+from ld_decode_tpu_torch.tbc import framer as TFR
+from ld_decode_tpu_torch.tbc import fused as TFU
+from ld_decode_tpu_torch.tbc import pal as TPAL
+from ld_decode_tpu_torch.tbc import sync_dev as TSD
+from ld_decode_tpu_torch.utils.params import DecoderConfig as TConfig
+
+from torch_parity import LOC_TOL, assert_audio_close, assert_pal_picture
+
+torch.set_num_threads(2)
+
+NBLOCKS, BATCH = 56, 4
+START = 2560 * 14      # past the first vertical interval
+FRAC_TOL = 1e-5        # pilot phase fractions, cycles, where no floor flipped
+
+
+def T(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _loc(i, f):
+    return np.asarray(i).astype(np.float64) + np.asarray(f)
+
+
+@pytest.fixture(scope='module')
+def ref():
+    """One JAX PAL batch from a framer-locked start, with the intermediates
+    of every stage."""
+    cfg = DecoderConfig(system='PAL', freq_mhz=40.0)
+    cap = E.encode_frames(cfg, 4, E.EncodeSpec(pattern='palbars',
+                                               cav_start_frame=900))
+    out = {'cfg': cfg, 'tcfg': TConfig(system='PAL', freq_mhz=40.0),
+           'cap': cap}
+    pitch = int(round(cfg.freq_hz / cfg.sys.fps / 2))
+    with jax.enable_x64(False):
+        bank = JF.make_demod_bank(cfg, np.complex64)
+        n_audio1 = NBLOCKS * bank.a_stage1_keep
+        fr = JFR.Framer(cfg, bank, capture=cap, batch=BATCH, nblocks=NBLOCKS)
+        f0, rs0, _ = fr.readfield(None, START)
+        rs0 = int(f0.readsample if f0.readsample >= 0 else rs0)
+        chunks, ns, no, pic, *_ = JFU.field_pipeline_batch(
+            jnp.asarray(cap), jnp.int32(rs0), jnp.float32(0.0),
+            jnp.float32(1.0), bank, cfg, NBLOCKS, n_audio1, BATCH, pitch,
+            pallas=False, valid_len=jnp.int32(cap.shape[0]), codec=False)
+        buf = np.concatenate([np.asarray(c) for c in chunks]).reshape(
+            BATCH, -1)
+        spec = JFU.pipeline_bundle_spec(cfg)
+        out['bundle'] = [spec.unpack(buf[b]) for b in range(BATCH)]
+        out['pic'] = np.asarray(pic).reshape(BATCH, JFU.max_linecount(cfg),
+                                             -1)
+        out['next'] = (int(ns), float(no))
+
+        starts = JFU.pipeline_starts(jnp.int32(rs0), 0, BATCH, pitch,
+                                     jnp.int32(cap.shape[0]), cfg, NBLOCKS)
+        video, audio1, lld, lc, *_ = JFU.pipeline_analyze(
+            jnp.asarray(cap), starts, jnp.float32(1.0), bank, cfg, NBLOCKS)
+        pk = jax.vmap(lambda s: JS.find_sync_peaks(
+            s, int(cfg.linelen * 0.4)))(video['demod_sync'])
+        out['idx'], out['val'] = np.asarray(pk[0]), np.asarray(pk[1])
+        out['nv'] = (out['idx'] >= 0).sum(1).astype(np.int32)
+        vsd = jax.vmap(lambda p, v, nv: JSD.determine_vsyncs_dev(
+            p, v, nv, cfg.linelen, True))(
+            jnp.asarray(out['idx']), jnp.asarray(out['val']),
+            jnp.asarray(out['nv']))
+        out['vsd'] = {k: np.asarray(v) for k, v in vsd._asdict().items()}
+        out['lld'] = {k: np.asarray(v) for k, v in lld._asdict().items()}
+        lli, llf, _bad = jax.vmap(lambda v, i_, f_, b_, l_: JFU._hsync_refine(
+            v, i_, f_, b_, l_, cfg))(video, lld.lli, lld.llf, lld.bad, lc)
+        out['lli'], out['llf'] = np.asarray(lli), np.asarray(llf)
+        out['lc'] = np.asarray(lc)
+        out['demod'] = np.asarray(video['demod'])
+        out['demod_05'] = np.asarray(video['demod_05'])
+        out['n_audio1'] = n_audio1
+        out['rs0'], out['pitch'] = rs0, pitch
+    return out
+
+
+@pytest.fixture(scope='module')
+def port_batch(ref):
+    cfg = ref['tcfg']
+    bank = TF.make_demod_bank(cfg, np.complex64, device='cpu')
+    res, ns, no = TFU.field_pipeline_batch(
+        torch.from_numpy(ref['cap'].astype(np.float32)), ref['rs0'], 0.0,
+        1.0, bank, cfg, NBLOCKS, ref['n_audio1'], BATCH, ref['pitch'])
+    out = {k: v.numpy() for k, v in res.items()}
+    out['next'] = (int(ns), float(no))
+    return out
+
+
+# --------------------------------------------------------------------------
+# tbc/pal.py
+
+def _j_offsets(demod, d05, lli, llf, cfg):
+    with jax.enable_x64(False):
+        fr, cr = jax.vmap(lambda d, e, i_, f_: JPAL.pilot_offsets(
+            d, e, i_, f_, cfg.linelen, cfg.freq_mhz))(
+            jnp.asarray(demod), jnp.asarray(d05), jnp.asarray(lli),
+            jnp.asarray(llf))
+        return np.asarray(fr), np.asarray(cr)
+
+
+def _j_once(demod, d05, lli, llf, cfg, relative_only):
+    with jax.enable_x64(False):
+        i2, f2 = jax.vmap(lambda d, e, i_, f_: JPAL._refine_pilot_once(
+            d, e, i_, f_, cfg.linelen, cfg.freq_mhz, relative_only))(
+            jnp.asarray(demod), jnp.asarray(d05), jnp.asarray(lli),
+            jnp.asarray(llf))
+        return np.asarray(i2), np.asarray(f2)
+
+
+def _frac_flips(got, want, mask):
+    """Circular |d| of the phase fractions on the crossings, and the count
+    of crossings whose floor flipped (|d| of almost a cycle)."""
+    d = np.abs(got - want)[mask]
+    flips = d > 0.5
+    return np.minimum(d, 1 - d), int(flips.sum())
+
+
+def test_pilot_offsets_decoded_field(ref):
+    cfg = ref['cfg']
+    wfrac, wcross = _j_offsets(ref['demod'], ref['demod_05'], ref['lli'],
+                               ref['llf'], cfg)
+    frac, cross = TPAL.pilot_offsets(
+        T(ref['demod']), T(ref['demod_05']), T(ref['lli']), T(ref['llf']),
+        cfg.linelen, cfg.freq_mhz)
+    np.testing.assert_array_equal(cross.numpy(), wcross)
+    # the capture carries a pilot: most lines have crossings
+    assert wcross.any(axis=-1).mean() > 0.9
+    d, flips = _frac_flips(frac.numpy(), wfrac, wcross)
+    assert flips == 0
+    assert d.max() <= FRAC_TOL
+
+
+@pytest.mark.parametrize('relative_only', [False, True])
+def test_refine_pilot_once_decoded_field(ref, relative_only):
+    cfg = ref['cfg']
+    wi, wf = _j_once(ref['demod'], ref['demod_05'], ref['lli'], ref['llf'],
+                     cfg, relative_only)
+    gi, gf = TPAL._refine_pilot_once(
+        T(ref['demod']), T(ref['demod_05']), T(ref['lli']), T(ref['llf']),
+        cfg.linelen, cfg.freq_mhz, relative_only)
+    assert gi.dtype == torch.int32 and gf.dtype == torch.float32
+    assert np.abs(_loc(gi, gf) - _loc(wi, wf)).max() <= LOC_TOL
+    # the pass moved the lines
+    assert np.abs(_loc(wi, wf) - _loc(ref['lli'], ref['llf'])).max() > 0.05
+
+
+def _pilot_field(rng, phase, amp=200000.0, L=24, zero_lines=()):
+    """A synthetic field: a 3.75 MHz pilot of `phase` cycles on a flat
+    demod, lines 2560 apart with jitter.  zero_lines carry no pilot (an
+    empty row)."""
+    n = 2560 * (L + 2)
+    t = np.arange(n)
+    demod = amp * np.sin(2 * np.pi * (t * 3.75 / 40.0 + phase))
+    ll = 3000.0 + 2560.0 * np.arange(L) + rng.uniform(-0.4, 0.4, L)
+    for l in zero_lines:
+        s = int(ll[l])
+        demod[s - 400:s + 10] = 0.0
+    lli = np.floor(ll).astype(np.int32)
+    return (demod.astype(np.float32), np.zeros(n, np.float32), lli,
+            (ll - lli).astype(np.float32))
+
+
+def test_refine_pilot_seeded_edge_cases():
+    """Seeded fields that hit: an even and an odd count of crossings in a
+    row (the even one averages the two middles), rows with no crossing
+    (NaN median -> no move), a field with no crossing at all (global median
+    NaN -> tgt 0, nothing moves) and pilot phases whose fractions straddle
+    the 0/1 wrap (where one flipped floor would move a line's plain median
+    by almost a cycle)."""
+    cfg = DecoderConfig(system='PAL', freq_mhz=40.0)
+    rng = np.random.default_rng(31)
+    fields = [_pilot_field(rng, ph, zero_lines=z)
+              for ph, z in ((0.13, (5, 6)), (0.40, ()), (0.4415, (9,)),
+                            (0.77, ()))]
+    fields.append(_pilot_field(rng, 0.3, amp=0.0))         # no pilot at all
+    demod, d05, lli, llf = (np.stack(x) for x in zip(*fields))
+
+    wfrac, wcross = _j_offsets(demod, d05, lli, llf, cfg)
+    frac, cross = TPAL.pilot_offsets(T(demod), T(d05), T(lli), T(llf),
+                                     cfg.linelen, cfg.freq_mhz)
+    np.testing.assert_array_equal(cross.numpy(), wcross)
+    counts = wcross[:, 2:].sum(-1)
+    assert (counts == 0).any() and (counts % 2 == 0).any() \
+        and (counts % 2 == 1).any(), np.unique(counts)
+    assert not wcross[4].any()                              # the empty field
+    d, flips = _frac_flips(frac.numpy(), wfrac, wcross)
+    assert flips == 0 and d.max() <= FRAC_TOL
+    # the wrap is straddled, between the lines of field 1 and within the
+    # lines of field 2 (fractions at both ends of one row)
+    lo = np.where(wcross, wfrac, 2.0).min(axis=-1)
+    hi = np.where(wcross, wfrac, -1.0).max(axis=-1)
+    assert lo[1].min() < 0.1 and hi[1].max() > 0.9
+    assert ((lo[2] < 0.01) & (hi[2] > 0.99)).any()
+
+    for relative_only in (False, True):
+        wi, wf = _j_once(demod, d05, lli, llf, cfg, relative_only)
+        gi, gf = TPAL._refine_pilot_once(T(demod), T(d05), T(lli), T(llf),
+                                         cfg.linelen, cfg.freq_mhz,
+                                         relative_only)
+        assert np.abs(_loc(gi, gf) - _loc(wi, wf)).max() <= LOC_TOL
+        # rows with no crossing, and the empty field, do not move
+        moved = np.abs(_loc(gi, gf) - _loc(lli, llf))
+        assert moved[4].max() == 0
+        assert moved[0, 5:7].max() == 0 and moved[2, 9] == 0
+
+
+def test_refine_pilot_passes(ref):
+    """`passes` stays a knob: 2 passes = the verbatim pass, then one
+    relative-only pass."""
+    cfg = ref['cfg']
+    args = [T(ref[k][:2]) for k in ('demod', 'demod_05', 'lli', 'llf')]
+    with jax.enable_x64(False):
+        want = jax.vmap(lambda d, e, i_, f_: JPAL.refine_pilot(
+            d, e, i_, f_, cfg.linelen, cfg.freq_mhz, passes=2))(
+            *[jnp.asarray(a.numpy()) for a in args])
+    got = TPAL.refine_pilot(*args, cfg.linelen, cfg.freq_mhz, passes=2)
+    assert np.abs(_loc(*got) - _loc(*want)).max() <= LOC_TOL
+    one = TPAL.refine_pilot(*args, cfg.linelen, cfg.freq_mhz)
+    assert np.abs(_loc(*got) - _loc(*one)).max() > 0
+
+
+# --------------------------------------------------------------------------
+# the PAL vote and line numbering
+
+def test_pal_vsync_vote_exact(ref):
+    cfg = ref['cfg']
+    got = TSD.determine_vsyncs_dev(T(ref['idx']), T(ref['val']),
+                                   T(ref['nv']), cfg.linelen, True)
+    for k in ('idx', 'line0', 'istop', 'count'):
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      ref['vsd'][k], err_msg=k)
+    assert (ref['vsd']['count'] >= 2).all()
+    # both field polarities are in the batch
+    assert len(set(ref['vsd']['istop'][:, 0].tolist())) == 2
+    # the NTSC vote decides otherwise on the same peaks
+    ntsc = TSD.determine_vsyncs_dev(T(ref['idx']), T(ref['val']),
+                                    T(ref['nv']), cfg.linelen, False)
+    assert not np.array_equal(ntsc.line0.numpy(), ref['vsd']['line0']) \
+        or not np.array_equal(ntsc.istop.numpy(), ref['vsd']['istop'])
+
+
+def test_pal_linelocs_dev_exact(ref):
+    cfg = ref['cfg']
+    v = ref['vsd']
+    got = TSD.compute_linelocs_dev(
+        T(ref['idx']), T(ref['val']), T(ref['nv']), T(v['med']),
+        T(v['tol']), T(v['line0'][:, 0]), T(v['line0'][:, 1]),
+        T(ref['lc']), cfg.linelen, TFU.max_nlines(ref['tcfg']))
+    r = ref['lld']
+    assert r['lli'].shape[1] == 317
+    np.testing.assert_array_equal(got.bad.numpy(), r['bad'])
+    np.testing.assert_array_equal(got.ok.numpy(), r['ok'])
+    np.testing.assert_array_equal(got.lli.numpy(), r['lli'])
+    assert np.abs(got.llf.numpy() - r['llf']).max() <= LOC_TOL
+
+
+# --------------------------------------------------------------------------
+# the whole batch
+
+def test_pal_batch_meta_words_exact(ref, port_batch):
+    want = np.stack([b['meta_i'] for b in ref['bundle']])
+    np.testing.assert_array_equal(port_batch['meta_i'], want)
+    assert want[:, 0].all()
+    assert set(want[:, 2].tolist()) == {312, 313}          # lc
+    assert port_batch['next'][0] == ref['next'][0]
+    np.testing.assert_allclose(port_batch['meta_f'],
+                               [b['meta_f'][0] for b in ref['bundle']],
+                               rtol=0, atol=1e-9)
+
+
+def test_pal_batch_linelocs(ref, port_batch):
+    for b, jb in enumerate(ref['bundle']):
+        want = _loc(jb['linelocs_i'], jb['linelocs_f'])
+        got = _loc(port_batch['linelocs_i'][b], port_batch['linelocs_f'][b])
+        assert np.abs(got - want).max() <= LOC_TOL
+        lc = int(jb['meta_i'][2])
+        # the head and tail sanitizers' lines step by 2^-9 px
+        assert np.abs(got - want)[10:lc - 6].max() <= 5e-4
+        assert np.abs(got - want).max() <= 2.0 ** -9 + 2e-4
+    assert not port_batch['burstlevel'].any()      # PAL: burst levels zero
+
+
+def test_pal_batch_audio(ref, port_batch):
+    for b, jb in enumerate(ref['bundle']):
+        assert port_batch['audio_count'][b] == jb['audio_count'][0]
+        n = (int(jb['audio_count'][0]) - 1) * 2
+        assert_audio_close(port_batch['audio'][b, :n], jb['audio'][:n])
+
+
+def test_pal_batch_philips_codes(ref, port_batch):
+    nok = 0
+    for b, jb in enumerate(ref['bundle']):
+        ok = jb['philips_ok'].astype(bool)
+        np.testing.assert_array_equal(port_batch['philips_ok'][b], ok)
+        np.testing.assert_array_equal(port_batch['philips_nib'][b][ok],
+                                      jb['philips_nib'][ok])
+        nok += int(ok.sum())
+    assert nok >= BATCH                    # lines 19-21 carried real codes
+
+
+def test_pal_batch_picture(ref, port_batch):
+    assert port_batch['picture'].shape == (BATCH, 313, 1135)
+    assert_pal_picture(port_batch['picture'], ref['pic'])
+    # columns 0/1 carry picture, not burst flag/level words (JAX passes no
+    # burst level into the PAL scale): they equal JAX's and are no flags
+    d01 = np.abs(port_batch['picture'][:, 24:300, :2].astype(np.int64)
+                 - ref['pic'][:, 24:300, :2])
+    assert d01.max() <= 4
+    assert not np.isin(port_batch['picture'][:, 1:300, 0],
+                       (16384, 32768)).all()
+
+
+# --------------------------------------------------------------------------
+# the Framer
+
+def _frames(framer, n=3):
+    out, s = [], START
+    for i in range(n):
+        rv = framer.readframe(None, s, i == 0)
+        if rv[0] is None:
+            break
+        out.append(rv)
+        s = rv[2]
+    return out
+
+
+@pytest.fixture(scope='module')
+def pair(ref):
+    cap = ref['cap']
+    with jax.enable_x64(False):
+        jf = JFR.Framer(ref['cfg'], JF.make_demod_bank(ref['cfg'],
+                                                       np.complex64),
+                        capture=cap, batch=6, pic_mode='raw')
+        jframes = _frames(jf)
+    bank = TF.make_demod_bank(ref['tcfg'], np.complex64, device='cpu')
+    tf = TFR.Framer(ref['tcfg'], bank, capture=cap, batch=6, device='cpu')
+    tframes = _frames(tf)
+    td = TFR.Framer(ref['tcfg'], bank, capture=cap, batch=6, device='cpu',
+                    fetch_picture=False)
+    return jf, tf, jframes, tframes, _frames(td)
+
+
+def test_pal_framer_frames_and_positions(pair):
+    jf, tf, jframes, tframes, _ = pair
+    assert len(tframes) == len(jframes) >= 2
+    assert tf.clvfps == 25
+    for a, b in zip(jframes, tframes):
+        assert a[2] == b[2]                      # next sample: exact
+        assert a[0].shape == b[0].shape == (625 * 1135,)
+        assert b[0].dtype == np.uint16
+        assert [f.linecount for f in a[3]] == [f.linecount for f in b[3]]
+    assert tf.prefetcher.stats['seq_fallback'] >= 1
+    assert tf.prefetcher.stats['hits'] >= 3
+    assert tf.prefetcher.field_pitch == 800000
+
+
+def test_pal_framer_picture_vbi_audio(pair):
+    jf, tf, jframes, tframes, _ = pair
+    assert tf.vbi['framenr'] == jf.vbi['framenr'] is not None
+    for a, b in zip(jframes, tframes):
+        assert [f.vbi['framenr'] for f in a[3]] \
+            == [f.vbi['framenr'] for f in b[3]]
+        np.testing.assert_array_equal(a[0][:16], b[0][:16])
+        assert_pal_picture(b[0].reshape(625, 1135), a[0].reshape(625, 1135),
+                           per_row=2)
+        assert_audio_close(b[1], a[1])
+
+
+def test_pal_device_weave_equals_host_weave(pair):
+    """Framer(fetch_picture=False) weaves 313/312-line fields of 1135
+    columns on the device: equal to the host weave, line-0 words and the
+    trailing half line included."""
+    _, _, _, host, dev = pair
+    assert sum(isinstance(f[0], torch.Tensor) for f in dev) >= 2
+    for h, d in zip(host, dev):
+        d = d[0].numpy() if isinstance(d[0], torch.Tensor) else d[0]
+        assert d.shape == h[0].shape == (625 * 1135,)
+        np.testing.assert_array_equal(d.astype(np.uint16), h[0])
+
+
+def test_pal_field_window_check():
+    """A PAL field needs a 56-block window; the NTSC value 52 is refused."""
+    from ld_decode_tpu_torch.tbc.field import FieldDecoder
+    cfg = TConfig(system='PAL', freq_mhz=40.0)
+    bank = TF.make_demod_bank(cfg, np.complex64, device='cpu')
+    with pytest.raises(ValueError, match='nblocks >= 56'):
+        FieldDecoder(cfg, bank, nblocks=52, device='cpu')
+    FieldDecoder(cfg, bank, nblocks=56, device='cpu')
