@@ -39,7 +39,26 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      frame emitted once, in order (each frame is stamped with its index),
      the flush tail included; K1 counted, K2 not launched;
  13. one PAL comb window of 4 device frames on the card vs on the CPU;
- 14. both CLIs with -p on a 10-frame PAL .lds capture.
+ 14. both CLIs with -p on a 10-frame PAL .lds capture;
+ 15. sequential decode path: the NTSC capture of phase 4 as an .lds through
+     Framer(loader=..., batch=1) (nblocks 66), 4 frames on the card, 2 of
+     them again on the CPU, card vs CPU to the decode budgets, K1 launched
+     3 times a decoded field and never its plain version; then PAL on the
+     `palbars` capture (nblocks 56), 1 launch a field;
+ 16. streaming comb: NTSCComb(dim=3, flow) over 6 textured frames on the
+     card, K2 9 times an emitted frame, all on the row path; one frame
+     card vs CPU (phase 8's budgets); the streaming against the batched
+     comb with -d 2 (1 LSB); -D, -k and -l on the card vs the CPU;
+ 17. K3 (the CX envelope followers): the production geometry on a
+     700,000-sample programme signal, kernel vs plain version on the CPU
+     (bit-equal, same certificate); a decaying envelope the certificate
+     refuses, and the one-lane scan that takes over; the device time of a
+     1 MB chunk against its bound; CXExpander over the programme in 1 MB
+     chunks, K3 counted;
+ 18. the two-step CLIs in-process: ldexport_torch.py -d 3 (--comb-batch 1
+     and 8, -a on phase 6's .pcm repeated past 32,768 samples) on phase
+     6's .tbc, ldexport_torch.py --pal -d 3 on phase 14's .tbc, and
+     ldview_torch.py seeking CAV frame 902 (a 744 x 480 image).
 The line before the last is the kernel JSON; the last line is the result.
 """
 
@@ -67,6 +86,13 @@ PAL_START = 2560 * 14   # past the first vertical interval
 # sum reaches 25,600 samples, where one float32 step is 2^-9 px, and on
 # `palbars` (a full-amplitude subcarrier) one step is up to 8 LSB
 PAL_TAIL_ROWS, PAL_TAIL_MAX = 11, 16
+# audio card vs CPU where the line table differs: ticks that the 48 kHz
+# chase maps through a moved line take another stage-2 sample (a jump of up
+# to a few hundred LSB) and are counted apart (tests/torch_parity.py)
+AUDIO_PICK_LSB, AUDIO_PICK_MAX = 8, 0.005
+# K3's dependent chain a step: FMUL -> {FMNMX, FFMA} -> FMNMX
+# (csrc/cx_envelope.cu), each ~4 cycles on Hopper's FP32 pipes
+K3_CHAIN_OPS, K3_OP_CYCLES = 3, 4
 
 
 def fail(msg: str):
@@ -98,15 +124,17 @@ def device_phase(torch):
 
 def build_phase():
     phase('2 build')
+    from ld_decode_tpu_torch.audio import cuda_cx as CC
     from ld_decode_tpu_torch.ops import cuda_gather as CG
     from ld_decode_tpu_torch.tbc import cuda_resample as CR
     from ld_decode_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        for f in [ex.submit(CR._lib), ex.submit(CG._lib)]:
+    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+        for f in [ex.submit(CR._lib), ex.submit(CG._lib),
+                  ex.submit(CC._lib)]:
             f.result()
-    print(f'both kernels loaded in {time.perf_counter() - t0:.2f} s')
-    for name in ('resample_lines', 'take_along_axis'):
+    print(f'all three kernels loaded in {time.perf_counter() - t0:.2f} s')
+    for name in ('resample_lines', 'take_along_axis', 'cx_envelope'):
         info = cuda_build.BUILDS[name]
         print(f'{name}.cu: nvcc {info.seconds:.2f} s -> {info.path}')
         for line in info.log.splitlines():
@@ -203,6 +231,10 @@ K1_CASES = [
     ('ntsc picture', 16, 52 * 15328, 263, 910, 2542.0, 0, None),
     ('ntsc burst window', 16, 52 * 15328, 263, 910, 2542.0, 16, 48),
     ('pal-width picture', 16, 56 * 15328, 313, 1135, 2560.0, 0, None),
+    # the sequential decode: one field a call (66 and 56 blocks)
+    ('ntsc seq picture', 1, 66 * 15328, 263, 910, 2542.0, 0, None),
+    ('ntsc seq burst window', 1, 66 * 15328, 263, 910, 2542.0, 16, 48),
+    ('pal seq picture', 1, 56 * 15328, 313, 1135, 2560.0, 0, None),
 ]
 
 
@@ -626,21 +658,22 @@ def _run_cli(script: str, argv):
     return time.perf_counter() - t0
 
 
-def cli_phase(np, cap, cfg, title='6 cli'):
+def cli_phase(np, cap, cfg, d: str, title='6 cli'):
+    """The decode CLI on a 10-frame capture written into `d`; its capture,
+    .tbc and .pcm stay there for phase 18."""
     phase(title)
     flags = ['-p'] if cfg.system == 'PAL' else []
     want = 8 * cfg.sys.frame_lines * cfg.sys.outlinelen * 2
-    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
-        path = _write_capture(np, cap, cfg, d)
-        out = os.path.join(d, 'out')
-        dt = _run_cli('lddecode_torch.py', [path, out, '-l', '8', '-q']
-                      + flags)
-        tbc = os.path.getsize(out + '.tbc')
-        pcm = os.path.getsize(out + '.pcm')
-        print(f'lddecode_torch.py {" ".join(flags + ["-l", "8"])}: {dt:.1f} '
-              f's, .tbc {tbc} bytes, .pcm {pcm} bytes')
-        if tbc != want or pcm <= 0:
-            fail(f'.tbc {tbc} bytes (want {want}), .pcm {pcm}')
+    path = _write_capture(np, cap, cfg, d)
+    out = os.path.join(d, 'out')
+    dt = _run_cli('lddecode_torch.py', [path, out, '-l', '8', '-q'] + flags)
+    tbc = os.path.getsize(out + '.tbc')
+    pcm = os.path.getsize(out + '.pcm')
+    print(f'lddecode_torch.py {" ".join(flags + ["-l", "8"])}: {dt:.1f} '
+          f's, .tbc {tbc} bytes, .pcm {pcm} bytes')
+    if tbc != want or pcm <= 0:
+        fail(f'.tbc {tbc} bytes (want {want}), .pcm {pcm}')
+    return path, out
 
 
 def chain_phase(torch, np, cfg, cap, bank):
@@ -914,6 +947,458 @@ def pal_comb_parity_phase(torch, np, dev_frames):
             fail(f'PAL comb card vs cpu outside the budgets (p99.9 '
                  f'{PAL_COMB_P999}, max {PAL_COMB_MAX} LSB)')
 
+SEQ_PATHS = {
+    'NTSC': dict(title='15 sequential decode path (NTSC)', nblocks=66,
+                 start=33046, k1_per_field=3),
+    'PAL': dict(title='15 sequential decode path (PAL)', nblocks=56,
+                start=PAL_START, k1_per_field=1),
+}
+
+
+def seq_decode_phase(torch, np, cfg, cap, bank, d: str):
+    """The --batch 1 decode through the user's entry point, a loader over
+    an .lds file: 4 frames on the card, then 2 of them on the CPU."""
+    p = SEQ_PATHS[cfg.system]
+    phase(p['title'])
+    from ld_decode_tpu_torch.io import loaders as L
+    from ld_decode_tpu_torch.ops import filters as F
+    from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    from ld_decode_tpu_torch.tbc import framer as FR
+    spf = int(cfg.freq_hz / cfg.sys.fps) + 1
+    path = os.path.join(d, f'seq_{cfg.system}.lds')
+    L.pack_data_4_40(cap[:8 * spf]).tofile(path)
+    loader = L.loader_for_path(path)
+
+    def decode(device, b, nframes):
+        fr = FR.Framer(cfg, b, loader, batch=1, nblocks=p['nblocks'],
+                       device=device)
+        valid = [0]
+        process = fr.decoder.process
+
+        def counted(*a, **k):
+            r = process(*a, **k)
+            valid[0] += int(r.valid)
+            return r
+
+        fr.decoder.process = counted
+        hsync = fr.decoder.refine_linelocs_hsync
+
+        def kept(*a, **k):
+            r = hsync(*a, **k)
+            steps.append((device, r[0].copy(), r[1].copy()))
+            return r
+
+        fr.decoder.refine_linelocs_hsync = kept
+        frames, sample = [], p['start']
+        with open(path, 'rb') as fd:
+            for i in range(nframes):
+                rv = fr.readframe(fd, sample, i == 0)
+                if rv[0] is None:
+                    break
+                frames.append(rv)
+                sample = rv[2]
+        return frames, valid[0]
+
+    def refuse(*_a, **_k):
+        fail('a line resample on the card reached the plain version')
+
+    steps = []
+
+    plain = CR.resample_lines_batch_plain
+    CR.resample_lines_batch_plain = refuse
+    try:
+        CR.resample_lines_batch.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu, nvalid = decode('cuda', bank, 4)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = CR.resample_lines_batch.launches
+    finally:
+        CR.resample_lines_batch_plain = plain
+    cav = [(int(rv[0][14]) << 16) | int(rv[0][15]) for rv in gpu]
+    sps = cfg.freq_hz / cfg.sys.fps
+    print(f'{cfg.system} batch 1 on the card: {len(gpu)} frames in '
+          f'{dt:.3f} s ({len(gpu) * sps / dt / 1e6:.2f} MSa/s, the warm-up '
+          f'frame included), CAV {cav}')
+    per = p['k1_per_field']
+    print(f'K1 launches {launches}: {per} per decoded field x {nvalid}; '
+          f'the plain version never called')
+    if len(gpu) < 4 or any(b != a + 1 for a, b in zip(cav, cav[1:])):
+        fail(f'sequential decode: {len(gpu)} frames, CAV {cav}')
+    if launches != per * nvalid or launches == 0:
+        fail(f'K1 launches {launches}, expected {per * nvalid}')
+
+    bank_cpu = F.make_demod_bank(cfg, np.complex64, device='cpu')
+    t0 = time.perf_counter()
+    cpu, _ = decode('cpu', bank_cpu, 2)
+    print(f'2 frames on the CPU in {time.perf_counter() - t0:.1f} s')
+    # the hsync stage of every field both decoded, in order
+    hs = [[x for x in steps if x[0] == dev] for dev in ('cuda', 'cpu')]
+    dhs = 0.0
+    for (_, gl, gb), (_, cl, cb) in zip(*hs):
+        if len(gl) != len(cl) or not np.array_equal(gb, cb):
+            fail('hsync stage: line counts or bad-line flags differ')
+        dhs = max(dhs, float(np.abs(gl - cl).max()))
+    # the final locations: every line but the last 10 of a field (the
+    # tail, in the vertical interval: its picture rows are PAL_TAIL_ROWS)
+    Y, W = cfg.sys.frame_lines, cfg.sys.outlinelen
+    cut = 2 * (cfg.sys.frame_lines // 2 - PAL_TAIL_ROWS)
+    dll, dtail, moved, p999, pmax, tmax = 0.0, 0.0, [], 0.0, 0, 0
+    audio_g, audio_c = [], []
+    for a, b in zip(gpu, cpu):
+        if a[2] != b[2] or not np.array_equal(a[0][:16], b[0][:16]):
+            fail('next sample or line-0 words differ, card vs CPU')
+        for fa, fb in zip(a[3], b[3]):
+            da = (fa.valid, fa.istop, fa.linecount, fa.nextfieldoffset,
+                  fa.peak_count, fa.vsync_count, fa.linecode)
+            db = (fb.valid, fb.istop, fb.linecount, fb.nextfieldoffset,
+                  fb.peak_count, fb.vsync_count, fb.linecode)
+            if da != db:
+                fail(f'field decisions differ, card vs CPU: {da} / {db}')
+            d = np.abs(fa.linelocs - fb.linelocs)
+            dll = max(dll, float(d[:-10].max()))
+            dtail = max(dtail, float(d[-10:].max()))
+            moved += [int(i) for i in np.nonzero(d > 0.02)[0]]
+        dp = np.abs(a[0].astype(np.int64) - b[0].astype(np.int64)).reshape(
+            Y, W)
+        p999 = max(p999, float(np.percentile(dp[24:cut], 99.9)))
+        pmax = max(pmax, int(dp[24:cut].max()))
+        tmax = max(tmax, int(dp[cut:].max()))
+        if a[1].shape != b[1].shape:
+            fail('audio lengths differ, card vs CPU')
+        audio_g.append(a[1])
+        audio_c.append(b[1])
+    da = np.abs(np.concatenate(audio_g).astype(np.float64)
+                - np.concatenate(audio_c))
+    picks = da > AUDIO_PICK_LSB
+    arms = float(np.sqrt(np.mean(da[~picks] ** 2)))
+    print(f'card vs CPU, 2 frames: decisions, Philips codes and line-0 '
+          f'words equal; hsync stage max|d| {dhs:.2e} px, bad-line flags '
+          f'equal; final linelocs max|d| {dll:.2e} px before the last 10 '
+          f'lines of a field, {dtail:.2e} px on them (lines over 0.02 px: '
+          f'{moved}); picture p99.9 {p999} max {pmax} LSB before the tail '
+          f'rows, tail rows max {tmax}; audio rms {arms:.3f} LSB with '
+          f'{int(picks.sum())} of {da.size} values over {AUDIO_PICK_LSB} LSB')
+    if dhs > 0.02 or dll > 0.02 or p999 > 2 or pmax > 4 or arms > 0.6 \
+            or picks.mean() > AUDIO_PICK_MAX:
+        fail('sequential card vs CPU outside the budgets')
+    if cfg.system == 'NTSC' and (dtail > 0.02 or tmax > 4):
+        fail('NTSC sequential tail lines outside the budgets')
+    return launches, gpu[0][0]
+
+
+def _textured(np, base, n: int, seed: int):
+    """n frames of `base` (525 x 910) under a smooth texture (up to +-4000
+    counts from line 20 and column 60) moving 1 px a frame sideways and a
+    line every other frame: content on which the flow is well posed
+    (tests/test_torch_comb.py's textured frames)."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.default_rng(seed)
+    tex = gaussian_filter(rng.normal(0, 1, (560, 960)), 2.0)
+    tex = tex / np.abs(tex).max() * 4000
+    out = []
+    for k in range(n):
+        f = np.asarray(base).reshape(525, 910).astype(np.int64)
+        t = np.roll(tex, (k // 2, k), axis=(0, 1))[:525, :910]
+        f[20:, 60:] = np.clip(f[20:, 60:] + t[20:, 60:], 0, 65535)
+        out.append(f.astype(np.uint16).reshape(-1))
+    return out
+
+
+def stream_comb_phase(torch, np, base):
+    phase('16 streaming comb')
+    from ld_decode_tpu_torch.comb.batch import NTSCCombBatch
+    from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig, NTSCComb
+    from ld_decode_tpu_torch.ops import cuda_gather as CG
+    frames = _textured(np, base, 6, RNG_SEED + 16)
+
+    def stream(cfg, device, fr):
+        comb = NTSCComb(cfg, device=device)
+        out = []
+        for f in fr:
+            rgb = comb.process(f)
+            if rgb is not None:
+                out.append((rgb, comb.last_frame_words.copy()))
+        return comb, out
+
+    CG.take_along_axis.launches = 0
+    CG.take_along_axis.row_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, gpu = stream(CombConfig(dim=3), 'cuda', frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    k2, rows = CG.take_along_axis.launches, CG.take_along_axis.row_launches
+    print(f'NTSCComb dim 3 with flow: {len(frames)} frames -> {len(gpu)} RGB '
+          f'frames in {dt:.3f} s ({len(gpu) / dt:.2f} RGB frames/s, the '
+          f'first frames included); K2 {k2} launches (9 per emitted frame: '
+          f'frames 0 and 1 only seed the flow), {rows} on the row path')
+    if len(gpu) != len(frames) - 2:
+        fail(f'{len(gpu)} RGB frames from {len(frames)} (want n - 2)')
+    if k2 != 9 * len(gpu) or rows != k2:
+        fail(f'K2 launches {k2} ({rows} rows), expected {9 * len(gpu)}')
+
+    # one frame, card vs CPU (phase 8's budgets), with the flows beside
+    gcomb, g3 = stream(CombConfig(dim=3), 'cuda', frames[:3])
+    ccomb, c3 = stream(CombConfig(dim=3), 'cpu', frames[:3])
+    (g, gw), (c, cw) = g3[0], c3[0]
+    if not np.array_equal(gw, cw) or not np.array_equal(g, gpu[0][0]):
+        fail('card vs CPU: words differ, or the stream is not repeatable')
+    dv = np.abs(g.astype(np.int64) - c.astype(np.int64))
+    df = np.abs(torch.stack([gcomb._of_flows[0], gcomb._of_flows[1]]).cpu()
+                .numpy() - torch.stack([ccomb._of_flows[0],
+                                        ccomb._of_flows[1]]).numpy())
+    print(f'one frame card vs CPU: p99.9 {float(np.percentile(dv, 99.9))} '
+          f'max {int(dv.max())} LSB; flow p99 {np.percentile(df, 99):.3e} px')
+    if np.percentile(dv, 99.9) > COMB_P999 or dv.max() > COMB_MAX \
+            or np.percentile(df, 99) > FLOW_P99:
+        fail('streaming comb card vs CPU outside the budgets')
+
+    # the streaming against the batched comb on the card, -d 2
+    _, s2 = stream(CombConfig(dim=2), 'cuda', frames)
+    b2 = NTSCCombBatch(CombConfig(dim=2), device='cuda')
+    r2, w2 = b2.collect(b2.feed(np.stack(frames)))
+    d2 = max(int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+             for (a, _), b in zip(s2, r2))
+    print(f'streaming vs batched comb, -d 2: {len(s2)} frames, max {d2} LSB')
+    if len(s2) != len(r2) or d2 > 1 or not all(
+            np.array_equal(w, x) for (_, w), x in zip(s2, w2)):
+        fail('streaming and batched comb disagree')
+
+    # the debug surfaces, card vs CPU
+    for name, cfg, n in (
+            ('-D', CombConfig(dim=3, opticalflow=False, debug2d=True), 3),
+            ('-k', CombConfig(dim=3, opticalflow=False, showk=True), 3),
+            ('-l', CombConfig(dim=2, debugline=100), 1)):
+        gc, go = stream(cfg, 'cuda', frames[:n])
+        cc, co = stream(cfg, 'cpu', frames[:n])
+        dd = int(np.abs(go[0][0].astype(np.int64)
+                        - co[0][0].astype(np.int64)).max())
+        msg = f'{name}: one frame, max {dd} LSB'
+        bad = dd > 1
+        if cfg.debug2d:
+            gd, cd = gc.last_debug2d, cc.last_debug2d
+            rel = max(abs(gd[k] - cd[k]) / abs(cd[k]) for k in ('mse', 'me'))
+            msg += f'; totals MSE {gd["mse"]:.6g} ME {gd["me"]:.6g}, rel ' \
+                   f'diff {rel:.2e}'
+            bad |= rel > 1e-4
+        print(msg)
+        if bad:
+            fail(f'debug surface {name}: card vs CPU outside the budgets')
+    return k2
+
+
+def _programme(np, n: int, seed: int):
+    """tests/test_cx.py:64-81: tone bursts, level steps and silences, as
+    offset-32768 uint16 stereo."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 48000.0
+    env = np.zeros(n)
+    pos = 0
+    while pos < n:
+        seg = int(rng.integers(12000, 60000))
+        env[pos:pos + seg] = float(rng.choice([0.0, 0.05, 0.2, 0.5, 0.9]))
+        pos += seg
+    pcm = np.empty(n * 2, np.uint16)
+    pcm[0::2] = np.clip(24000.0 * env * np.sin(2 * np.pi * 997 * t) + 32768,
+                        0, 65535).astype(np.uint16)
+    pcm[1::2] = np.clip(18000.0 * env * np.sin(2 * np.pi * 1501 * t)
+                        + 32768, 0, 65535).astype(np.uint16)
+    return pcm
+
+
+def _event_ms(torch, fn, reps: int = 5) -> float:
+    """Median device time of single eager calls between CUDA events, after
+    two warm-up calls: for a kernel of milliseconds, the launch overhead is
+    a fraction of a percent."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def k3_phase(torch, np):
+    phase('17 K3: the CX envelope followers')
+    import scipy.signal as sps
+    from ld_decode_tpu_torch.audio import cuda_cx as CC
+    from ld_decode_tpu_torch.audio import cx as CX
+    pcm = _programme(np, 700_000, RNG_SEED + 17)
+    zi = sps.lfilter_zi(*CX.F500) * 0.0
+    fl, _ = sps.lfilter(*CX.F500, pcm[0::2].astype(np.float64) - 32768,
+                        zi=zi)
+    fr, _ = sps.lfilter(*CX.F500, pcm[1::2].astype(np.float64) - 32768,
+                        zi=zi.copy())
+    menv = np.maximum(np.abs(fl), np.abs(fr))
+    core, warm = CX.CX_BLOCK_CORE, CX.CX_BLOCK_WARM
+    nb = -(-len(menv) // core)
+    mt = torch.from_numpy(menv.astype(np.float32))
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        t0 = time.perf_counter()
+        out = CX._blocked_envelopes(mt.to(dev), np.float32(0), np.float32(0),
+                                    core, warm, nb)
+        res[dev] = [o.cpu().numpy() for o in out]
+        print(f'blocked envelopes on the {dev}: {2 * nb} lanes of '
+              f'{core + warm} steps, {time.perf_counter() - t0:.2f} s')
+    (gf, gs, gd, ge), (cf, cs, cd, ce) = res['cuda'], res['cpu']
+    err = max(float(np.abs(gf - cf).max()), float(np.abs(gs - cs).max()))
+    exact = (np.array_equal(gf, cf) and np.array_equal(gs, cs)
+             and gd == cd and ge == ce)
+    ok_g, ok_c = bool(gd <= 0.05 and ge <= 1e-3), bool(cd <= 0.05
+                                                       and ce <= 1e-3)
+    print(f'K3 vs plain, 700,000 samples at core {core} / warm {warm}: '
+          f'bit-equal {exact} (max|d| {err}); certificate gain gap '
+          f'{float(gd)} / end gap {float(ge)}: ok {ok_g} on the card, '
+          f'{ok_c} on the CPU')
+    if not exact or ok_g != ok_c or not ok_g:
+        fail('K3 disagrees with its plain version, or the certificate '
+             'failed on programme audio')
+
+    # the decaying envelope of tests/test_cx.py:141-145: the certificate
+    # refuses and the one-lane scan takes over
+    dec = 20000.0 * np.exp(-1.5e-5 * np.arange(400_000))
+    CC.envelope_lanes.launches = 0
+    _, _, ok = CX.envelope_followers_blocked(dec, 20000.0, 20000.0,
+                                             device='cuda')
+    f2, s2 = CX.envelope_followers(dec, 20000.0, 20000.0, device='cuda')
+    n_dec = CC.envelope_lanes.launches
+    pf, ps = CX._envelope_scan(dec[:65536], 20000.0, 20000.0, device='cpu')
+    same = np.array_equal(f2[:65536], pf) and np.array_equal(s2[:65536], ps)
+    print(f'decaying envelope: certificate ok {ok}; envelope_followers fell '
+          f'back to the scan ({n_dec} launches: blocked twice, the scan '
+          f'once); scan vs plain over the first 65,536 steps bit-equal '
+          f'{same}')
+    if ok or n_dec != 3 or not same:
+        fail('the certificate fallback did not behave')
+
+    # device time of one 1 MB chunk of 16-bit stereo: 262,144 samples, two
+    # blocks, four lanes of core + warm steps
+    chunk = mt[:262144]
+    starts = [k * core - warm for k in range(2) for _ in range(2)]
+    st0 = [(0.0, 0.0), (0.0, 0.0), (0.0, 0.0), (CX._ENV_CEIL, CX._ENV_CEIL)]
+    gchunk = chunk.cuda()
+    ms = _event_ms(torch, lambda: CC.envelope_lanes(gchunk, starts, st0,
+                                                    warm, core))
+    t0 = time.perf_counter()
+    CC.envelope_lanes_plain(chunk, starts, st0, warm, core)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                          '--format=csv,noheader,nounits'],
+                         capture_output=True, text=True, timeout=60)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    chain_ms = (core + warm) * K3_CHAIN_OPS * K3_OP_CYCLES / (mhz * 1e3)
+    nbytes = 4 * (chunk.numel() + 4 * 2 * core)
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    bound_ms, bound_by = max((chain_ms, 'operations'), (bytes_ms, 'bytes'))
+    print(f'K3, one 1 MB chunk (4 lanes x {core + warm} steps): {ms:.4f} ms '
+          f'on the card (one eager call between CUDA events, median of 5); '
+          f'plain version {plain_ms:.1f} ms on the CPU; bound {bound_ms:.4f} '
+          f'ms by the dependent chain ({K3_CHAIN_OPS} ops x {K3_OP_CYCLES} '
+          f'cycles a step at the {mhz:.0f} MHz maximum SM clock; the bytes '
+          f'{bytes_ms * 1e3:.2f} us); {bound_ms / ms:.3f} of it')
+
+    # the file-level path: CXExpander over the programme in 1 MB chunks
+    CC.envelope_lanes.launches = 0
+    cx = CX.CXExpander(device='cuda')
+    s16 = (pcm.astype(np.int32) - 32768).astype('<i2')
+    t0 = time.perf_counter()
+    nout = 0
+    for k in range(0, s16.size, 1 << 19):
+        nout += cx.process(s16[k:k + (1 << 19)]).size
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = CC.envelope_lanes.launches
+    print(f'CXExpander on the card, 700,000 samples in 1 MB chunks: '
+          f'{dt:.3f} s, {nout} values out; K3 launches {launches}')
+    if launches == 0 or nout != s16.size:
+        fail('file-level CX did not run through K3')
+    return dict(launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def two_step_phase(torch, np, ntsc_cli, pal_cli, d: str):
+    """ldexport and ldview in-process (their counters are this process's),
+    on the files phases 6 and 14 wrote."""
+    phase('18 two-step CLIs')
+    import ldexport_torch
+    import ldview_torch
+    from ld_decode_tpu_torch.audio import cuda_cx as CC
+    from ld_decode_tpu_torch.ops import cuda_gather as CG
+    from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    cap_path, out = ntsc_cli
+    pcm = np.fromfile(out + '.pcm', '<i2')
+    longpcm = np.tile(pcm, -(-2 * 32768 // pcm.size) + 1)
+    apath = os.path.join(d, 'long.pcm')
+    longpcm.tofile(apath)
+    CG.take_along_axis.launches = 0
+    CG.take_along_axis.row_launches = 0
+    CC.envelope_lanes.launches = 0
+    counts = []
+    for cb in ('1', '8'):
+        o = os.path.join(d, f'export{cb}')
+        t0 = time.perf_counter()
+        rc = ldexport_torch.main([out + '.tbc', o, '-d', '3', '--comb-batch',
+                                  cb, '-a', apath, '--write-images'])
+        imgs = [f for f in os.listdir(d) if f.startswith(f'export{cb}_')]
+        sizes = {os.path.getsize(os.path.join(d, f)) for f in imgs}
+        apcm = os.path.getsize(o + '.audio.pcm')
+        print(f'ldexport_torch.py -d 3 --comb-batch {cb} -a '
+              f'({longpcm.size // 2} stereo samples): exit {rc}, '
+              f'{time.perf_counter() - t0:.1f} s, {len(imgs)} images of '
+              f'{sizes} bytes, .audio.pcm {apcm} bytes')
+        if rc != 0 or sizes != {480 * 744 * 3 * 2} \
+                or apcm != longpcm.size * 2:
+            fail('ldexport -d 3 wrote the wrong outputs')
+        counts.append(len(imgs))
+    k2, rows = CG.take_along_axis.launches, CG.take_along_axis.row_launches
+    k3 = CC.envelope_lanes.launches
+    print(f'ldexport launches: K2 {k2} ({rows} on the row path), K3 {k3}')
+    if counts[0] != counts[1] or counts[0] < 6 or k2 == 0 or rows != k2 \
+            or k3 == 0:
+        fail('ldexport: image counts differ or a kernel did not launch')
+
+    pcap, pout = pal_cli
+    o = os.path.join(d, 'export_pal')
+    rc = ldexport_torch.main([pout + '.tbc', o, '--pal', '-d', '3',
+                              '--write-images'])
+    imgs = [f for f in os.listdir(d) if f.startswith('export_pal_')]
+    sizes = {os.path.getsize(os.path.join(d, f)) for f in imgs}
+    print(f'ldexport_torch.py --pal -d 3: exit {rc}, {len(imgs)} images of '
+          f'{sizes} bytes')
+    if rc != 0 or len(imgs) != 8 or sizes != {576 * 1135 * 3 * 2}:
+        fail('ldexport --pal wrote the wrong outputs')
+
+    CR.resample_lines_batch.launches = 0
+    img = os.path.join(d, 'view.png')
+    t0 = time.perf_counter()
+    rc = ldview_torch.main([cap_path, '902', img])
+    k1 = CR.resample_lines_batch.launches
+    if os.path.exists(img):
+        from PIL import Image
+        shape = np.asarray(Image.open(img)).shape
+        what = f'{img} {shape}'
+        good = shape == (480, 744, 3)
+    else:
+        size = os.path.getsize(img + '.rgb')
+        what = f'{img}.rgb (no pillow) {size} bytes'
+        good = size == 744 * 480 * 3 * 2
+    print(f'ldview_torch.py, CAV 902: exit {rc}, '
+          f'{time.perf_counter() - t0:.1f} s, {what}; K1 launches {k1}')
+    if rc != 0 or not good or k1 == 0:
+        fail('ldview did not write a 744 x 480 image')
+    return dict(k2=k2, k3=k3, k1_view=k1)
+
 
 def main():
     try:
@@ -932,18 +1417,22 @@ def main():
     if 'jax' in sys.modules:
         fail('jax was imported')
     os.makedirs(os.path.join(ROOT, 'build'), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as work:
+        run(torch, np, work)
 
+
+def run(torch, np, work: str):
     device_phase(torch)
     build_phase()
     kres = kernel_phase(torch, np)
     cfg, cap, bank, fr, launches = main_path_phase(torch, np)
     parity_phase(torch, np, cfg, bank, fr)
-    cli_phase(np, cap, cfg)
+    ntsc_cli = cli_phase(np, cap, cfg, _subdir(work, 'ntsc'))
     del fr
     k1, k2, dev_frames = chain_phase(torch, np, cfg, cap, bank)
     comb_parity_phase(torch, np, dev_frames)
     chain_cli_phase(np, cap, cfg)
-    del cap, bank
+    del dev_frames
 
     pcfg, pcap, pbank, pfr, pal_launches = main_path_phase(torch, np, 'PAL')
     parity_phase(torch, np, pcfg, pbank, pfr,
@@ -952,40 +1441,77 @@ def main():
     del pfr
     pal_k1, pal_frames = pal_chain_phase(torch, np, pcfg, pcap, pbank)
     pal_comb_parity_phase(torch, np, pal_frames)
-    cli_phase(np, pcap, pcfg, title='14 PAL cli')
+    pal_cli = cli_phase(np, pcap, pcfg, _subdir(work, 'pal'),
+                        title='14 PAL cli')
     chain_cli_phase(np, pcap, pcfg, title='14 PAL chain cli')
+    del pal_frames
+
+    seq_ntsc, base = seq_decode_phase(torch, np, cfg, cap, bank, work)
+    seq_pal, _ = seq_decode_phase(torch, np, pcfg, pcap, pbank, work)
+    del cap, bank, pcap, pbank
+    k2_stream = stream_comb_phase(torch, np, base)
+    k3 = k3_phase(torch, np)
+    two = two_step_phase(torch, np, ntsc_cli, pal_cli, _subdir(work, 'two'))
     if 'jax' in sys.modules:
         fail('jax was imported')
 
-    # the kernels line: K1 at the PAL picture shape with the launches of
-    # this slice's main paths (PAL decode and PAL chain, each counted from
-    # 0), then K1 and K2 with the NTSC chain path's launches (phase 7)
-    print(f'NTSC decode path K1 launches {launches}; NTSC chain path K1 '
-          f'{k1}, K2 {k2}; PAL decode path K1 {pal_launches}; PAL chain '
-          f'path K1 {pal_k1}, K2 0')
-    k1r = kres['K1']['ntsc picture']
-    k1p = kres['K1']['pal-width picture']
-    k2r = kres['K2']['warp 2 fields x 252x840']
+    # the kernels line: each kernel with the launches of every path that
+    # runs it (each path counted from 0 just before it, read just after);
+    # `launches` is this slice's own path of each: the sequential decodes
+    # (K1), the streaming comb (K2), file-level CX (K3)
+    print(f'K1 launches: NTSC decode {launches}, NTSC chain {k1}, PAL decode '
+          f'{pal_launches}, PAL chain {pal_k1}, NTSC seq decode {seq_ntsc}, '
+          f'PAL seq decode {seq_pal}, ldview {two["k1_view"]}; K2: NTSC chain '
+          f'{k2}, NTSC stream comb {k2_stream}, ldexport {two["k2"]}; K3: cx '
+          f'file {k3["launches"]}, ldexport {two["k3"]}')
+    k1_paths = {'ntsc seq decode': seq_ntsc, 'pal seq decode': seq_pal,
+                'ldview': two['k1_view'], 'pal decode': pal_launches,
+                'pal chain': pal_k1, 'ntsc decode': launches,
+                'ntsc chain': k1}
     k1_common = dict(route='cuda',
                      source='ld_decode_tpu_torch/csrc/resample_lines.cu',
                      replaces='ld_decode_tpu/tbc/pallas_resample.py:205',
                      ms_method=MS_METHOD)
+    k3_launches = k3.pop('launches')
     print(json.dumps({'kernels': [
+        dict(name='resample_lines_batch[ntsc seq]',
+             shape='ntsc seq picture (1, 263, 910)', launches=seq_ntsc,
+             launches_by_path=k1_paths, **k1_common,
+             **kres['K1']['ntsc seq picture']),
+        dict(name='resample_lines_batch[pal seq]',
+             shape='pal seq picture (1, 313, 1135)', launches=seq_pal,
+             **k1_common, **kres['K1']['pal seq picture']),
         dict(name='resample_lines_batch', shape='pal picture (16, 313, 1135)',
-             launches=pal_k1, launches_by_path={
-                 'pal decode': pal_launches, 'pal chain': pal_k1,
-                 'ntsc decode': launches, 'ntsc chain': k1},
-             **k1_common, **k1p),
+             launches=pal_k1, **k1_common,
+             **kres['K1']['pal-width picture']),
         dict(name='resample_lines_batch[ntsc]',
              shape='ntsc picture (16, 263, 910)', launches=k1, **k1_common,
-             **k1r),
+             **kres['K1']['ntsc picture']),
         dict(name='take_along_axis', route='cuda',
              source='ld_decode_tpu_torch/csrc/take_along_axis.cu',
-             replaces='scripts/probe_warp.py:118', launches=k2,
-             ms_method=MS_METHOD, **k2r)]}))
+             replaces='scripts/probe_warp.py:118', launches=k2_stream,
+             launches_by_path={'ntsc stream comb': k2_stream,
+                               'ldexport': two['k2'], 'ntsc chain': k2},
+             ms_method=MS_METHOD, **kres['K2']['warp 2 fields x 252x840']),
+        dict(name='envelope_lanes', route='cuda',
+             source='ld_decode_tpu_torch/csrc/cx_envelope.cu',
+             replaces='ld_decode_tpu/audio/cx.py:119 (_blocked_envelopes, '
+                      'a lax.scan: no Pallas kernel)',
+             launches=k3_launches,
+             launches_by_path={'cx file': k3_launches,
+                               'ldexport': two['k3']},
+             shape='1 MB chunk: 4 lanes x 393,216 steps',
+             ms_method='one eager call between CUDA events, median of 5',
+             plain_on='cpu', **k3)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
+
+
+def _subdir(work: str, name: str) -> str:
+    d = os.path.join(work, name)
+    os.makedirs(d, exist_ok=True)
+    return d
 
 
 if __name__ == '__main__':

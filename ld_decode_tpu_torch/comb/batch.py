@@ -36,10 +36,10 @@ from typing import Callable, Deque, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ld_decode_tpu_torch.comb.comb_ntsc import (
-    DEBUG_TODO, IN_X, IN_Y, CombConfig, _frame_core, agc_levels, flow_luma)
+    _CXSIZE, _CYSIZE, IN_X, IN_Y, CombConfig, _frame_core, burst_levels,
+    field_pics, flow_confidence, flow_luma)
 from ld_decode_tpu_torch.comb.comb_pal import (PAL_X, PAL_Y, CombPALConfig,
                                                comb_core, prepare_frames)
 from ld_decode_tpu_torch.comb.optflow import farneback
@@ -47,35 +47,13 @@ from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
 from ld_decode_tpu_torch.utils.device import to_host_async
 
-# flow-field geometry (comb-ntsc.cxx:606-615): each field's luma is a
-# 252x840 image; the pyramid cap keeps both dims >= 32 px, which for
-# 252 rows at pyr_scale 0.5 caps the requested 4 levels to 2
-_CYSIZE, _CXSIZE = 252, IN_X - 70
+# the pyramid cap keeps both dims of the 252x840 field images >= 32 px,
+# which at pyr_scale 0.5 caps the requested 4 levels to 2
 _FB_LEVELS = 2
-
-
-def _field_pics(lum: torch.Tensor) -> torch.Tensor:
-    """(..., Y, X) luma -> (..., 2, 252, 840) field images quantized as
-    the streaming driver's uint16 cast does (clamp, truncate), kept as
-    float32."""
-    out = []
-    for field in range(2):
-        rows = np.clip(23 + field + 2 * np.arange(_CYSIZE), 0, IN_Y - 1)
-        pic = lum[..., rows, 70:70 + _CXSIZE]
-        out.append(torch.clamp(pic, 0, 65535).to(torch.int32))
-    return torch.stack(out, dim=-3).to(torch.float32)
 
 
 def _crop(rgb: torch.Tensor, cfg: CombConfig) -> torch.Tensor:
     return rgb if cfg.wide else rgb[..., 78:78 + 744, :]
-
-
-def _levels(frames: torch.Tensor, ab: float, cfg: CombConfig):
-    """AGC levels of `frames` (E, Y, X) in order, from the carry `ab`.
-    Synchronises with the device: the frames' burst column (E x 525
-    values) comes to the host for the EMA loop (comb_ntsc.agc_levels)."""
-    lv, ab = agc_levels(frames[:, :, 1].cpu().numpy(), ab, cfg)
-    return torch.from_numpy(lv).to(frames.device), ab
 
 
 def _comb_window_of(win: torch.Tensor, flow0: torch.Tensor, ab0: float,
@@ -84,37 +62,33 @@ def _comb_window_of(win: torch.Tensor, flow0: torch.Tensor, ab0: float,
     successor, chaining the per-field flow and the burst AGC.  Returns
     (rgb, words, flow, ab)."""
     lum = flow_luma(win, cfg)
-    pics = _field_pics(lum)                        # (M, 2, 252, 840)
+    pics = field_pics(lum)                         # (M, 2, 252, 840)
     cur, nxt = win[:-1], win[1:]
-    levels, ab = _levels(cur, ab0, cfg)
+    levels, ab = burst_levels(cur, ab0, cfg)
     flow = flow0
     combk2 = []
     for e in range(win.shape[0] - 1):
         # streaming arg order: prev_img = the NEWER field image
         flow = farneback(pics[e + 1], pics[e], flow, 0.5, _FB_LEVELS, 60, 3,
                          7, 1.5, True)
-        mag = torch.sqrt(flow[..., 1] ** 2 + (flow[..., 0] * 2) ** 2)
-        c = 1.0 - torch.clamp((mag - cfg.of_3dcore) / cfg.of_3drange, 0, 1)
-        c = torch.minimum(c[0], c[1])
-        combk2.append(F.pad(torch.repeat_interleave(c, 2, dim=0),
-                            (70, 0, 0, IN_Y - 2 * _CYSIZE)))
-    rgb = _frame_core(cur, nxt, nxt, levels, cfg,
-                      combk2_in=torch.stack(combk2))
+        combk2.append(flow_confidence(flow, cfg.of_3dcore, cfg.of_3drange))
+    rgb, _ = _frame_core(cur, nxt, nxt, levels, cfg,
+                         combk2_in=torch.stack(combk2))
     return _crop(rgb, cfg), cur[:, 0, :16], flow, ab
 
 
 def _comb_window_ring(win: torch.Tensor, ab0: float, cfg: CombConfig):
     """No-opticalflow dim 3: emit win[1..M-2] from (e-1, e, e+1) rings."""
     prv, cur, nxt = win[:-2], win[1:-1], win[2:]
-    levels, ab = _levels(cur, ab0, cfg)
-    rgb = _frame_core(cur, prv, nxt, levels, cfg)
+    levels, ab = burst_levels(cur, ab0, cfg)
+    rgb, _ = _frame_core(cur, prv, nxt, levels, cfg)
     return _crop(rgb, cfg), cur[:, 0, :16], ab
 
 
 def _comb_window_simple(win: torch.Tensor, ab0: float, cfg: CombConfig):
     """dims 1/2: every frame emits; only the AGC chains."""
-    levels, ab = _levels(win, ab0, cfg)
-    rgb = _frame_core(win, win, win, levels, cfg)
+    levels, ab = burst_levels(win, ab0, cfg)
+    rgb, _ = _frame_core(win, win, win, levels, cfg)
     return _crop(rgb, cfg), win[:, 0, :16], ab
 
 
@@ -138,12 +112,13 @@ def _host_rgb(handle, out8: bool):
 
 class NTSCCombBatch:
     """Batched NTSC comb: `feed(frames)` combs a window, `collect(handle)`
-    returns (rgb_list, words_list)."""
+    returns (rgb_list, words_list).  The debug surfaces (-D/-k/-l) stay on
+    the streaming NTSCComb."""
 
     def __init__(self, cfg: CombConfig = CombConfig(), out8: bool = False,
                  device=DEFAULT_DEVICE):
         if cfg.has_debug:
-            raise NotImplementedError(DEBUG_TODO)
+            raise ValueError('debug surfaces need the streaming NTSCComb')
         self.cfg = cfg
         self.out8 = out8        # comb -8: top byte only
         self.device = resolve_device(device)

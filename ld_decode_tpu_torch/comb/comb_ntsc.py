@@ -16,21 +16,31 @@ What changed in the port, each held to JAX by tests/test_torch_comb.py:
     `agc_levels`, a float32 host loop over the burst column of a window's
     frames, computed before the comb; `to_rgb` takes its levels.
 
-Not ported (ROADMAP.md Queue 1, "streaming NTSCComb"): the frame-at-a-time
-NTSCComb and its debug surfaces (-D, -k, -l), and the cv2 host engine
-`farneback_combk2`.
+`NTSCComb` is the frame-at-a-time comb (the reference's `Comb::Process`,
+what ldexport and ldview run): the 3-frame ring, the flow carry, the AGC
+carry (one small device-to-host copy of the burst column a frame), the
+line-0 words of the emitted frame, and the debug surfaces -D
+(`debug2d_stats`), -k and -l, which only it serves: the batched comb
+(comb/batch.py) refuses them, as the JAX package's does.  Its flow runs
+both fields of a frame through one batched Farnebäck call
+(`farneback_combk2`), or through OpenCV on the host with
+optflow_engine='cv2' (a parity oracle).
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import scipy.signal as sps
 import torch
 import torch.nn.functional as F
+
+from ld_decode_tpu_torch.comb.optflow import calc_optical_flow_farneback
+from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
+from ld_decode_tpu_torch.utils.device import resolve as resolve_device
 
 IN_Y, IN_X = 525, 910
 FREQ4 = 4 * 315.0 / 88.0
@@ -43,9 +53,6 @@ FRAME_INFO_CAV_EVEN = 0x4
 FRAME_INFO_CAV_ODD = 0x8
 FRAME_INFO_WHITE_ODD = 0x100
 FRAME_INFO_WHITE_EVEN = 0x200
-
-DEBUG_TODO = ('the comb debug surfaces (-D, -k, -l) need the streaming '
-              'NTSCComb, which is not ported (ROADMAP.md Queue 1, item P6)')
 
 
 @dataclass(frozen=True)
@@ -70,9 +77,16 @@ class CombConfig:
     linesout: int = 480
     opticalflow: bool = True   # dim 3: Farneback flow gating (reference
                                # default; False = the K-map `-F` path)
-    debug2d: bool = False      # -D, -k, -l: not ported (DEBUG_TODO)
-    showk: bool = False
-    debugline: int = -10000
+    debug2d: bool = False      # -D: replace chroma with the 2D-3D estimate
+                               # difference over 50-IRE gray and report
+                               # per-line/total MSE+ME (comb-ntsc.cxx:440-482)
+    showk: bool = False        # -k: render combk[dim-1] as grayscale
+                               # (comb-ntsc.cxx:575-579)
+    debugline: int = -10000    # -l: expose + black out line debugline+25
+                               # (comb-ntsc.cxx:581-591)
+    optflow_engine: str = 'native'  # 'native' = the port's Farneback
+                                    # (comb/optflow.py); 'cv2' = OpenCV on
+                                    # the host, a parity oracle
 
     @property
     def firstline(self) -> int:
@@ -80,6 +94,7 @@ class CombConfig:
 
     @property
     def has_debug(self) -> bool:
+        """-D, -k or -l: the streaming NTSCComb's debug surfaces."""
         return self.debug2d or self.showk or self.debugline > -9999
 
 
@@ -301,9 +316,16 @@ def split3d(raw: torch.Tensor, prev_raw: torch.Tensor,
 
 
 def split_iq(raw, clps, combks, invert_col: torch.Tensor, cfg: CombConfig):
-    """(comb-ntsc.cxx:414-483).  Returns (y, i, q) float tensors."""
+    """(comb-ntsc.cxx:414-483).  Returns (y, i, q) float tensors.
+
+    With cfg.debug2d the blended chroma is replaced by the raw 2D-3D
+    estimate difference and luma by 50-IRE gray (comb-ntsc.cxx:440-461);
+    the MSE/ME statistics over that difference are `debug2d_stats`."""
     dev = raw.device
-    cavg = sum(c * k for c, k in zip(clps, combks)) / 2.0
+    if cfg.debug2d:
+        cavg = clps[1] - clps[0]          # clp1 - clp2 (2D minus 3D)
+    else:
+        cavg = sum(c * k for c, k in zip(clps, combks)) / 2.0
     cavg = torch.where(invert_col[..., None], cavg, -cavg)
 
     phase = torch.arange(IN_X, device=dev)[None, :] % 4
@@ -317,13 +339,31 @@ def split_iq(raw, clps, combks, invert_col: torch.Tensor, cfg: CombConfig):
                      _shift_right(sq_val))
 
     mask = _row_mask(36, IN_Y, dev) & _col_mask(4, 840, dev)
-    y = torch.where(mask, raw, 0.0)
+    # ire_to_u16(50) = (50+40)*irescale + irebase (comb-ntsc.cxx:150-155,461)
+    ybase = torch.full_like(raw, 50 * IRESCALE + 40 * IRESCALE + IREBASE) \
+        if cfg.debug2d else raw
+    y = torch.where(mask, ybase, 0.0)
     i = torch.where(mask, si, 0.0)
     q = torch.where(mask, sq, 0.0)
     if cfg.bw:
         i = torch.zeros_like(i)
         q = torch.zeros_like(q)
     return y, i, q
+
+
+def debug2d_stats(clp1, clp2):
+    """Per-line and total MSE/ME of the 2D-3D chroma difference
+    (comb-ntsc.cxx:440-445,476-482): columns 4..839, per-line mean over
+    836 samples, totals over lines 36..523 (the SplitIQ loop floor
+    intersected with the 6..523 print window)."""
+    dev = clp1.device
+    d = torch.where(_col_mask(4, 840, dev), clp1 - clp2, 0.0)
+    msel = (d * d).sum(dim=-1) / 836.0
+    sel = d.abs().sum(dim=-1) / 836.0
+    lr = torch.arange(IN_Y, device=dev)
+    lmask = (lr >= 36) & (lr <= 523)
+    return (msel, sel, torch.where(lmask, msel, 0.0).sum(dim=-1),
+            torch.where(lmask, sel, 0.0).sum(dim=-1))
 
 
 def adjust_y(y, i, q, invert_col: torch.Tensor, cfg: CombConfig):
@@ -431,6 +471,15 @@ def agc_levels(burst_raw: np.ndarray, aburstlev: float, cfg: CombConfig
     return out, float(c)
 
 
+def burst_levels(frames: torch.Tensor, aburstlev: float, cfg: CombConfig):
+    """AGC levels of `frames` (E, IN_Y, IN_X) in order, from the carry
+    `aburstlev`: (levels (E, IN_Y - firstline) on the frames' device, the
+    new carry).  Synchronises with the device: the frames' burst column
+    (E x 525 values) comes to the host for the EMA loop (agc_levels)."""
+    lv, ab = agc_levels(frames[:, :, 1].cpu().numpy(), aburstlev, cfg)
+    return torch.from_numpy(lv).to(frames.device), ab
+
+
 def to_rgb(y, i, q, levels: torch.Tensor, cfg: CombConfig) -> torch.Tensor:
     """YIQ -> RGB48 (comb-ntsc.cxx:555-598) with the burst-AGC levels of
     each line from firstline on (`agc_levels`).  Returns (..., linesout,
@@ -486,13 +535,14 @@ def flow_luma(raw_u16: torch.Tensor, cfg: CombConfig) -> torch.Tensor:
 
 
 def _frame_core(raw_u16, prev_u16, next_u16, levels: torch.Tensor,
-                cfg: CombConfig, combk2_in=None) -> torch.Tensor:
-    """Comb frames (..., IN_Y, IN_X) to RGB48 (..., linesout, 910, 3) int32.
-    prev/next are the temporal neighbours for dim 3 (the optical-flow mode
-    reads prev only, gated by combk2_in); levels are the AGC levels of
-    `agc_levels`."""
-    if cfg.has_debug:
-        raise NotImplementedError(DEBUG_TODO)
+                cfg: CombConfig, combk2_in=None):
+    """Comb frames (..., IN_Y, IN_X) to (RGB48 (..., linesout, 910, 3)
+    int32, extras).  prev/next are the temporal neighbours for dim 3 (the
+    optical-flow mode reads prev only, gated by combk2_in); levels are the
+    AGC levels of `agc_levels`.  extras holds the debug surfaces the
+    configuration asks for: -D's per-line and total MSE/ME (mse_line,
+    me_line, mse, me), -l's pre-AGC YIQ row (dbg_y, dbg_i, dbg_q); -k
+    renders the K-map as the picture itself."""
     dev = raw_u16.device
     raw = raw_u16.to(torch.float32)
     invert_col = _invert_col(raw_u16, cfg)
@@ -540,7 +590,111 @@ def _frame_core(raw_u16, prev_u16, next_u16, levels: torch.Tensor,
 
     y = do_ynr(y, cfg)
     i, q = do_cnr(i, q, cfg)
-    return to_rgb(y, i, q, levels, cfg)
+
+    extras = {}
+    if cfg.debug2d:
+        msel, sel, mse, me = debug2d_stats(clp1, clp2)
+        extras.update(mse_line=msel, me_line=sel, mse=mse, me=me)
+    if cfg.showk:
+        # -k: luma = combk[dim-1] rendered as 0..100 IRE, read 82 samples
+        # ahead; chroma off (comb-ntsc.cxx:575-579)
+        ksel = {1: combk0, 2: combk1, 3: combk2}[cfg.dim]
+        y = torch.clamp((_shift_left(ksel, 82) * 100 + 40) * IRESCALE
+                        + IREBASE, 1, 65535)
+        i = torch.zeros_like(i)
+        q = torch.zeros_like(q)
+    if cfg.debugline > -9999:
+        l = cfg.debugline + 25
+        extras.update(dbg_y=y[..., l, :], dbg_i=i[..., l, :],
+                      dbg_q=q[..., l, :])
+    return to_rgb(y, i, q, levels, cfg), extras
+
+
+def comb_frame(raw_u16, prev_u16, next_u16, aburstlev: float,
+               cfg: CombConfig):
+    """One (IN_Y, IN_X) frame: (RGB48 int32, the AGC carry, extras)."""
+    levels, ab = burst_levels(raw_u16[None], aburstlev, cfg)
+    rgb, extras = _frame_core(raw_u16, prev_u16, next_u16, levels[0], cfg)
+    return rgb, ab, extras
+
+
+def comb_frame_of(raw_u16, newest_u16, combk2, aburstlev: float,
+                  cfg: CombConfig):
+    """One frame in the optical-flow mode, gated by the flow confidence
+    map `combk2` (farneback_combk2)."""
+    levels, ab = burst_levels(raw_u16[None], aburstlev, cfg)
+    rgb, extras = _frame_core(raw_u16, newest_u16, newest_u16, levels[0],
+                              cfg, combk2_in=combk2)
+    return rgb, ab, extras
+
+
+# flow-field geometry (comb-ntsc.cxx:606-615): each field's luma is a
+# 252x840 image
+_CYSIZE, _CXSIZE = 252, IN_X - 70
+
+
+def field_pics(lum: torch.Tensor) -> torch.Tensor:
+    """(..., IN_Y, IN_X) luma -> (..., 2, 252, 840) field images quantized
+    as the reference's uint16 cast does (clamp, truncate), kept as
+    float32."""
+    out = []
+    for field in range(2):
+        rows = np.clip(23 + field + 2 * np.arange(_CYSIZE), 0, IN_Y - 1)
+        pic = lum[..., rows, 70:70 + _CXSIZE]
+        out.append(torch.clamp(pic, 0, 65535).to(torch.int32))
+    return torch.stack(out, dim=-3).to(torch.float32)
+
+
+def flow_confidence(flow: torch.Tensor, core: float, rng: float
+                    ) -> torch.Tensor:
+    """Per-field flows (..., 2, 252, 840, 2) -> the (..., IN_Y, IN_X) 3D
+    confidence map: 1 - clip((|flow| - core) / range) with the horizontal
+    component doubled, the lower of the two fields, on both rows of each
+    field line pair from column 70 (comb-ntsc.cxx:600-662)."""
+    mag = torch.sqrt(flow[..., 1] ** 2 + (flow[..., 0] * 2) ** 2)
+    c = 1.0 - torch.clamp((mag - core) / rng, 0, 1)
+    c = torch.minimum(c[..., 0, :, :], c[..., 1, :, :])
+    return F.pad(torch.repeat_interleave(c, 2, dim=-2),
+                 (70, 0, 0, IN_Y - 2 * _CYSIZE))
+
+
+def farneback_combk2(y_now: torch.Tensor, prev_pics: dict, flows: dict,
+                     fcount: int, p_3dcore: float = 0.0,
+                     p_3drange: float = 0.5,
+                     engine: str = 'native') -> torch.Tensor:
+    """Per-pixel 3D confidence from Farneback optical flow on each field's
+    luma (comb-ntsc.cxx:600-662): the (IN_Y, IN_X) float32 map, zero
+    before the second frame.  Mutates the prev_pics/flows carries (keyed
+    by field 0, 1).
+
+    engine='native' runs both fields through one batched
+    calc_optical_flow_farneback call on y_now's device (K2 gathers both
+    fields' rows in each of its 9 launches); engine='cv2' calls OpenCV on
+    the host, one field at a time (the parity oracle)."""
+    pics = field_pics(y_now)                       # (2, 252, 840)
+    dev = y_now.device
+    host = pics.cpu().numpy().astype(np.uint16) if engine == 'cv2' else None
+    combk2 = torch.zeros((IN_Y, IN_X), dtype=torch.float32, device=dev)
+    if fcount:
+        use_init = fcount > 1
+        if engine == 'cv2':
+            import cv2
+            flags = cv2.OPTFLOW_USE_INITIAL_FLOW if use_init else 0
+            for field in range(2):
+                flows[field] = cv2.calcOpticalFlowFarneback(
+                    host[field], prev_pics[field], flows.get(field), 0.5, 4,
+                    60, 3, 7, 1.5, flags)
+            flow = torch.from_numpy(np.stack([flows[0], flows[1]])).to(dev)
+        else:
+            init = torch.stack([flows[0], flows[1]]) if use_init else None
+            flow = calc_optical_flow_farneback(
+                pics, torch.stack([prev_pics[0], prev_pics[1]]), init, 0.5,
+                4, 60, 3, 7, 1.5, use_initial_flow=use_init, device=dev)
+            flows[0], flows[1] = flow[0], flow[1]
+        combk2 = flow_confidence(flow, p_3dcore, p_3drange)
+    for field in range(2):
+        prev_pics[field] = host[field] if host is not None else pics[field]
+    return combk2
 
 
 class PulldownAssembler:
@@ -586,3 +740,89 @@ class PulldownAssembler:
         elif fstart == 1:
             self._odd = np.asarray(rgb).copy()
         return emits
+
+
+def _frame_words(frame: torch.Tensor) -> np.ndarray:
+    """A frame's 16 line-0 metadata words as np.uint16."""
+    return frame[0, :16].cpu().numpy().astype(np.uint16)
+
+
+class NTSCComb:
+    """Stateful frame-at-a-time comb mirroring `Comb::Process`
+    (comb-ntsc.cxx:834-938): 3-frame ring for dim 3, flow and AGC carries,
+    the debug surfaces, crop.  Frames live on `device` (default the card);
+    each emitted RGB frame comes to the host."""
+
+    def __init__(self, cfg: CombConfig = CombConfig(),
+                 device=DEFAULT_DEVICE):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.ring = []
+        self.aburstlev = -1.0
+        self.framecount = 0
+        self._of_prev = {}
+        self._of_flows = {}
+        self._of_count = 0
+        self._of_combk2 = None
+        # line-0 metadata words of the frame the last process() output
+        # corresponds to (lags the input by one frame in dim-3 mode);
+        # the pulldown assembler keys off these (comb-ntsc.cxx:911-921)
+        self.last_frame_words = np.zeros(16, np.uint16)
+        # debug surfaces: -D stats / -l line dump from the last frame
+        # (comb-ntsc.cxx:476-482, 581-591)
+        self.last_debug2d = None       # dict(mse, me, mse_line, me_line)
+        self.last_debugline = None     # dict(y, i, q) pre-AGC YIQ row
+
+    def process(self, framebuf) -> Optional[np.ndarray]:
+        """framebuf: (525*910,) or (525, 910) 16-bit samples, a numpy array
+        or a tensor.  Returns RGB48 (linesout, 744 or 910, 3) uint16, or
+        None during dim-3 warmup."""
+        cfg = self.cfg
+        if not isinstance(framebuf, torch.Tensor):
+            framebuf = torch.from_numpy(np.asarray(framebuf).astype(np.int32))
+        frame = framebuf.to(self.device).reshape(IN_Y, IN_X)
+        if cfg.dim >= 3:
+            self.ring.append(frame)
+            if len(self.ring) > 3:
+                self.ring.pop(0)
+            if cfg.opticalflow and self.framecount >= 1:
+                # flow between the newest frame's NR'd luma and the
+                # previous one (comb-ntsc.cxx:852-858)
+                self._of_combk2 = farneback_combk2(
+                    flow_luma(frame, cfg), self._of_prev, self._of_flows,
+                    self._of_count, cfg.of_3dcore, cfg.of_3drange,
+                    cfg.optflow_engine)
+                self._of_count += 1
+            if len(self.ring) < 3:
+                self.framecount += 1
+                return None
+            nxt, cur, prv = self.ring[2], self.ring[1], self.ring[0]
+            self.last_frame_words = _frame_words(cur)
+            # ring order: Frame[0]=new, Frame[1]=mid, Frame[2]=old;
+            # Split3D(f=1): p3=Frame[0] (newest), n3=Frame[2] (oldest)
+            if cfg.opticalflow:
+                rgb, self.aburstlev, extras = comb_frame_of(
+                    cur, nxt, self._of_combk2, self.aburstlev, cfg)
+            else:
+                rgb, self.aburstlev, extras = comb_frame(
+                    cur, nxt, prv, self.aburstlev, cfg)
+        else:
+            self.last_frame_words = _frame_words(frame)
+            rgb, self.aburstlev, extras = comb_frame(
+                frame, frame, frame, self.aburstlev, cfg)
+        self.framecount += 1
+        out = rgb.cpu().numpy().astype(np.uint16)
+        if cfg.debug2d:
+            self.last_debug2d = {
+                'mse_line': extras['mse_line'].cpu().numpy(),
+                'me_line': extras['me_line'].cpu().numpy(),
+                'mse': float(extras['mse']), 'me': float(extras['me'])}
+        if cfg.debugline > -9999:
+            self.last_debugline = {k[4:]: extras[k].cpu().numpy()
+                                   for k in ('dbg_y', 'dbg_i', 'dbg_q')}
+            row = cfg.debugline + 25 - cfg.firstline
+            if 0 <= row < out.shape[0]:
+                out[row] = 0           # blacked out (comb-ntsc.cxx:588-590)
+        if not cfg.wide:
+            out = out[:, 78:78 + 744]
+        return out

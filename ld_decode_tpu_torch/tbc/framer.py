@@ -2,9 +2,11 @@
 feedback and frame-accurate seek (torch port of
 ld_decode_tpu/tbc/framer.py).
 
-Host-side control flow over per-field results; the compute runs in the
-batched device pipeline (tbc/pipeline.py, tbc/fused.py).  Only the batched
-path is ported: `batch` must be > 1.
+Host-side control flow over per-field results.  With batch > 1 the compute
+runs in the batched device pipeline (tbc/pipeline.py, tbc/fused.py); with
+batch=1 each field is decoded on its own: `FieldDecoder.process` on a
+loader's window (the JAX package's default Framer, and lddecode --batch 1)
+or `FieldDecoder.process_resident` on a device-resident capture.
 """
 
 from __future__ import annotations
@@ -22,10 +24,6 @@ from ld_decode_tpu_torch.ops.filters import DemodBank
 from ld_decode_tpu_torch.tbc import fused as FU
 from ld_decode_tpu_torch.tbc.field import FieldDecoder
 from ld_decode_tpu_torch.tbc.pipeline import FieldPrefetcher
-
-BATCH1_TODO = ('the sequential --batch 1 decode is not ported (ROADMAP.md '
-               'Queue 1, item P2); use batch > 1')
-
 
 def to_device_capture(samples: np.ndarray, device) -> torch.Tensor:
     """Raw capture samples -> the resident float32 capture.  .r16 captures
@@ -66,16 +64,22 @@ class Framer:
                  rot_level: float = 40.0, flip_fields: bool = False,
                  bff: bool = False, device=DEFAULT_DEVICE,
                  fetch_picture: bool = True):
-        """Either `loader` (file reads into a sliding device-resident
-        segment of `segment_samples`) or `capture` (the whole capture kept
-        on the device) must be given.  Batches of `batch` speculative
-        fields run through the device pipeline; the audio carry advances
-        per field.  fetch_picture=False is the chain mode: the fields'
-        pictures stay on the device and readframe returns the woven frame
-        as a device tensor (int32) for the comb."""
+        """Either `loader` (file reads) or `capture` (the whole capture kept
+        on the device) must be given.
+
+        batch > 1: batches of `batch` speculative fields run through the
+        device pipeline, a loader's reads going into a sliding
+        device-resident segment of `segment_samples`; the audio carry
+        advances per field.  fetch_picture=False is the chain mode: the
+        fields' pictures stay on the device and readframe returns the woven
+        frame as a device tensor (int32) for the comb.
+
+        batch=1: one field a call, in order (the JAX package's default): a
+        loader's window of each field is read and decoded by
+        FieldDecoder.process, a resident capture's by process_resident;
+        the audio carry advances per frame, and the pictures come to the
+        host (fetch_picture is not read)."""
         FU.require_tbc(cfg)
-        if batch <= 1:
-            raise NotImplementedError(BATCH1_TODO)
         if (loader is None) == (capture is None):
             raise ValueError('give exactly one of loader= and capture=')
         self.cfg = cfg
@@ -89,13 +93,16 @@ class Framer:
         self.nblocks = nblocks
         self.decoder = FieldDecoder(cfg, self.bank, nblocks, self.device)
 
-        capture_dev = None
+        self.capture_dev = None
         if capture is not None:
-            capture_dev = to_device_capture(capture, self.device)
-        self.prefetcher = FieldPrefetcher(self.decoder, capture_dev, batch,
-                                          fetch_picture=fetch_picture)
+            self.capture_dev = to_device_capture(capture, self.device)
+        self.prefetcher = None
         self._seg_samples = 0
-        if capture_dev is None:
+        if batch > 1:
+            self.prefetcher = FieldPrefetcher(self.decoder, self.capture_dev,
+                                              batch,
+                                              fetch_picture=fetch_picture)
+        if self.prefetcher is not None and self.capture_dev is None:
             if segment_samples <= 0:
                 segment_samples = 256 << 20      # 1 GiB of float32
             # lookahead the chain needs resident beyond any request
@@ -116,6 +123,19 @@ class Framer:
         self.vbi = {'framenr': None, 'isclv': False, 'minutes': None}
 
     # ------------------------------------------------------------------
+
+    def _load(self, infile, readsample: int) -> Optional[np.ndarray]:
+        """Fetch the demod window so output index 0 == file sample
+        `readsample` (reference head-cut alignment, lddecode_core.py:376-379):
+        a window that starts before the file is zero-padded at its head."""
+        start = readsample - self.cfg.blockcut
+        n = D.stream_len(self.cfg, self.nblocks)
+        if start < 0:
+            data = self.loader(infile, 0, n + start)
+            if data is None:
+                return None
+            return np.concatenate([np.zeros(-start, data.dtype), data])
+        return self.loader(infile, start, n)
 
     def _ensure_segment(self, infile, sample: int) -> bool:
         """Segmented mode: make [sample, sample+horizon) device-resident.
@@ -154,15 +174,28 @@ class Framer:
         cfg = self.cfg
         readsample = int(sample)
         while True:
-            if not self._ensure_segment(infile, readsample):
-                return None, None, None
-            f = self.prefetcher.get(readsample, self.mtf_level,
-                                    self.audio_offset)
-            if f is None:
-                return None, None, None
-            if f.valid and f.dsaudio is not None:
-                # batched mode: per-field audio carry
-                self.audio_offset = f.audio_next_offset
+            if self.prefetcher is not None:
+                if not self._ensure_segment(infile, readsample):
+                    return None, None, None
+                f = self.prefetcher.get(readsample, self.mtf_level,
+                                        self.audio_offset)
+                if f is None:
+                    return None, None, None
+                if f.valid and f.dsaudio is not None:
+                    # batched mode: per-field audio carry
+                    self.audio_offset = f.audio_next_offset
+            elif self.capture_dev is not None:
+                f = self.decoder.process_resident(
+                    self.capture_dev, readsample, self.mtf_level,
+                    self.audio_offset)
+                if f is None:
+                    return None, None, None
+            else:
+                stream = self._load(infile, readsample)
+                if stream is None:
+                    return None, None, None
+                f = self.decoder.process(stream, self.mtf_level,
+                                         self.audio_offset)
             # advance from the actual decode-window start
             base = f.readsample if f.readsample >= 0 else readsample
             nextsample = base + f.nextfieldoffset

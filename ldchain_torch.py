@@ -169,7 +169,7 @@ def main(argv=None):
     # PAL frames carry no pulldown words (and its flush tail has none)
     pulldown = PulldownAssembler() if args.pulldown and not args.pal \
         else None
-    cx = CXExpander()
+    cx = CXExpander(device=device)
 
     def emit(rgb, words):
         if args.length is not None and sink.nframes >= args.length:

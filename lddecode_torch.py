@@ -6,8 +6,10 @@ Same arguments as lddecode_tpu.py, minus --pic-mode (a transfer mode of
 the JAX package), plus --device.  Decodes on the CUDA device (--device,
 default `cuda`); without one it fails unless `--device cpu` asks for the
 CPU.  NTSC and PAL (-p); --efm also pulls the EFM digital audio out of the
-capture on the host (<out>.efm.pcm + <out>.subcode.log).  The batched path
-only: --batch 1 raises NotImplementedError naming its ROADMAP.md item.
+capture on the host (<out>.efm.pcm + <out>.subcode.log).  --batch 1 decodes
+field by field (the JAX package's sequential path, FieldDecoder.process on
+each field's window of the file); larger batches run the speculative
+batched pipeline over a sliding device-resident segment of the file.
 """
 
 import argparse
@@ -39,7 +41,8 @@ def parse_args(argv=None):
                    help='cut (to r16) instead of decode')
     p.add_argument('--batch', type=int, default=8,
                    help='speculative field-batch size for the device '
-                        'pipeline (must be > 1)')
+                        'pipeline (1: the sequential decode, one field '
+                        'at a time)')
     p.add_argument('--segment-mb', type=int, default=512,
                    help='device-resident capture window, MB of 16-bit '
                         'samples (decoding runs inside a sliding segment '
@@ -82,9 +85,6 @@ def main(argv=None):
     if args.pal and args.ntsc:
         log.critical('Can only be PAL or NTSC')
         return 1
-    if args.batch <= 1:
-        from ld_decode_tpu_torch.tbc.framer import BATCH1_TODO
-        raise NotImplementedError(BATCH1_TODO)
 
     from ld_decode_tpu_torch.io import loaders as L
     from ld_decode_tpu_torch.utils.device import resolve
@@ -111,7 +111,7 @@ def main(argv=None):
         else infile_size // bytes_per_frame - args.start
 
     with open(args.infile, 'rb') as fd:
-        framer = FR.Framer(cfg, bank, loader, batch=args.batch,
+        framer = FR.Framer(cfg, bank, loader, batch=max(args.batch, 1),
                            segment_samples=args.segment_mb * (1 << 20) // 2,
                            despackle=args.despackle, rot_level=args.rot,
                            flip_fields=args.flip, bff=args.bff,

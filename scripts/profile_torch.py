@@ -2,20 +2,23 @@
 """Where the time goes on the card: the PyTorch port's decode path
 (Framer, batch 16, 40 MSa/s; NTSC with nblocks 52, or with --pal PAL with
 nblocks 56 on a `palbars` capture) and, with --comb, one window of the
-chain's dim-3 comb (NTSC: optical flow; PAL: the temporal ring), under
-torch.profiler.
+chain's dim-3 comb (NTSC: optical flow; PAL: the temporal ring), and with
+--stream the two-step path: one field of the sequential decode
+(Framer(loader=..., batch=1)) and one frame of the streaming comb
+(NTSCComb dim 3 with flow, or PALComb dim 3), under torch.profiler.
 
     python3 scripts/profile_torch.py [--pal] [--frames 16] [--comb]
-                                     [--trace out.json]
+                                     [--stream] [--trace out.json]
 
 Prints the card's name and power limit, then for each profiled window its
 wall time, the device's busy and idle share (summed kernel and copy time
 over the window's wall time; the port runs on one stream), the device
 operations per unit of work (per field batch for the decode, per emitted
-RGB frame for the comb), the launches and device time of the hand-written
-kernels K1 (resample_lines_kernel) and K2 (take_rows_kernel, the row
-gather, and take_along_axis_kernel, the general path) and the kernels
-that take the most device time.  Fails without a CUDA device.
+RGB frame for the comb, per field or frame for --stream), the launches and
+device time of the hand-written kernels K1 (resample_lines_kernel), K2
+(take_rows_kernel, the row gather, and take_along_axis_kernel, the general
+path) and K3 (cx_envelope_kernel) and the kernels that take the most
+device time.  Fails without a CUDA device.
 """
 
 import argparse
@@ -32,8 +35,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ld_decode_tpu_torch.comb.batch import (  # noqa: E402
     CombWindows, NTSCCombBatch, PALCombBatch)
-from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig  # noqa: E402
-from ld_decode_tpu_torch.comb.comb_pal import CombPALConfig  # noqa: E402
+from ld_decode_tpu_torch.comb.comb_ntsc import (  # noqa: E402
+    CombConfig, NTSCComb)
+from ld_decode_tpu_torch.comb.comb_pal import (  # noqa: E402
+    CombPALConfig, PALComb)
+from ld_decode_tpu_torch.io.loaders import make_array_loader  # noqa: E402
 from ld_decode_tpu_torch.models import encode as E  # noqa: E402
 from ld_decode_tpu_torch.ops import filters as F  # noqa: E402
 from ld_decode_tpu_torch.tbc import framer as FR  # noqa: E402
@@ -57,7 +63,8 @@ def profiled(fn, trace=None):
 
 HAND_KERNELS = (('K1 resample_lines', ('resample_lines_kernel',)),
                 ('K2 take_along_axis', ('take_rows_kernel',
-                                        'take_along_axis_kernel')))
+                                        'take_along_axis_kernel')),
+                ('K3 cx_envelope', ('cx_envelope_kernel',)))
 
 
 def report(label, wall, events, units, unit_name):
@@ -97,6 +104,9 @@ def main():
                     help='profile the PAL decode (and PAL comb) instead')
     ap.add_argument('--comb', action='store_true',
                     help='also profile one comb window of 8 frames')
+    ap.add_argument('--stream', action='store_true',
+                    help='also profile one field of the sequential decode '
+                         'and one frame of the streaming comb')
     ap.add_argument('--trace', default=None,
                     help='write a Chrome trace of the decode window here')
     args = ap.parse_args()
@@ -165,6 +175,45 @@ def main():
         print(f'{system} comb: {n} RGB frames, {n / wall:.2f} frames/s '
               f'under the profiler')
         report('comb window', wall, events, n, 'RGB frame')
+
+    if args.stream:
+        stream_windows(cfg, cap, bank, nblocks, start, fr, state['rv'][2])
+
+
+def stream_windows(cfg, cap, bank, nblocks, start, fr, sample):
+    """The two-step path: one field of the sequential decode (a loader over
+    the capture, after two fields of warm-up), then one frame of the
+    streaming comb (after the ring and the flow carry have filled)."""
+    seq = FR.Framer(cfg, bank, loader=make_array_loader(cap), batch=1,
+                    nblocks=nblocks, device='cuda')
+    _, _, nxt = seq.readfield(None, start)
+    _, _, nxt = seq.readfield(None, nxt)
+    state = {'next': nxt}
+
+    def field():
+        f, _, state['next'] = seq.readfield(None, state['next'])
+        if f is None:
+            sys.exit('capture ended inside the profiled field')
+
+    wall, events = profiled(field)
+    spf = cfg.freq_hz / cfg.sys.fps / 2
+    print(f'{cfg.system} sequential field: {spf / wall / 1e6:.2f} MSa/s '
+          f'under the profiler')
+    report('sequential field', wall, events, 1, 'field')
+
+    frames = []
+    for _ in range(5):
+        rv = fr.readframe(None, sample, False)
+        frames.append(rv[0])
+        sample = rv[2]
+    comb = PALComb(CombPALConfig(dim=3), device='cuda') if cfg.system == 'PAL' \
+        else NTSCComb(CombConfig(dim=3), device='cuda')
+    for f in frames[:4]:
+        comb.process(f)
+    wall, events = profiled(lambda: comb.process(frames[4]))
+    print(f'{cfg.system} streaming comb: one RGB frame, {1 / wall:.2f} '
+          f'frames/s under the profiler')
+    report('streaming comb frame', wall, events, 1, 'RGB frame')
 
 
 if __name__ == '__main__':

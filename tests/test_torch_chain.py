@@ -96,8 +96,12 @@ def test_cx_expander_frame_chunks():
     for k in range(0, pcm.size, step):
         chunk = pcm[k:k + step]
         np.testing.assert_array_equal(tx.process(chunk), jx.process(chunk))
-    with pytest.raises(NotImplementedError, match='P8'):
-        TCX.envelope_followers(np.zeros(TCX.CX_HOST_MAX))
+    # from CX_HOST_MAX samples on, the block-parallel envelopes (held to
+    # JAX in tests/test_torch_cx_file.py)
+    zeros = np.zeros(TCX.CX_HOST_MAX)
+    for got, want in zip(TCX.envelope_followers(zeros, device='cpu'),
+                         JCX.envelope_followers(zeros)):
+        np.testing.assert_array_equal(got, want)
 
 
 def _run_both(lds, tmp_path, flags, monkeypatch):

@@ -68,8 +68,12 @@ def test_cli_seek(r16, tmp_path):
 
 
 def test_cli_unported_modes_raise(r16, tmp_path):
-    with pytest.raises(NotImplementedError, match='batch 1'):
-        lddecode_torch.main([str(r16), str(tmp_path / 'o'), '--batch', '1'])
+    """--batch 1 decodes (the sequential path, held to lddecode_tpu.py in
+    tests/test_torch_field_seq.py); -p with -n is refused."""
+    assert lddecode_torch.main([str(r16), str(tmp_path / 'o'), '--batch',
+                                '1', '-l', '1', '--device', 'cpu',
+                                '-q']) == 0
+    assert np.fromfile(str(tmp_path / 'o') + '.tbc', '<u2').size == FRAME
     assert lddecode_torch.main([str(r16), str(tmp_path / 'o'), '-p', '-n',
                                 '--device', 'cpu', '-q']) == 1
 

@@ -179,7 +179,7 @@ def test_field_pics_truncate_like_uint16():
     lum[23, 70:75] = [2.9999998, 3.0, -0.5, 65535.9, 70000.0]
     with jax.enable_x64(False):
         want = np.asarray(JB._field_pics(jnp.asarray(lum)))
-    got = TB._field_pics(_t(lum)).numpy()
+    got = TC.field_pics(_t(lum)).numpy()
     np.testing.assert_array_equal(got, want.astype(np.float32))
     np.testing.assert_array_equal(got[0, 0, :5], [2, 3, 0, 65535, 65535])
 
@@ -326,7 +326,10 @@ def test_comb_windows_loop_depth_and_order(frames6):
 
 
 def test_debug_surfaces_raise():
+    """The batched comb refuses the debug surfaces with the JAX package's
+    ValueError (ld_decode_tpu/comb/batch.py:454): they need the streaming
+    NTSCComb (tests/test_torch_comb_stream.py)."""
     for kw in (dict(debug2d=True), dict(showk=True), dict(debugline=5)):
-        with pytest.raises(NotImplementedError, match='streaming NTSCComb'):
+        with pytest.raises(ValueError, match='streaming NTSCComb'):
             TB.NTSCCombBatch(TC.CombConfig(**kw), device='cpu')
 

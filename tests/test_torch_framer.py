@@ -83,11 +83,16 @@ def test_framer_audio(pair):
 
 
 def test_framer_rejects_unported_modes():
+    """batch=1 is the sequential decode (held to JAX in
+    tests/test_torch_field_seq.py): no prefetcher, the capture resident;
+    the tape systems have no laserdisc TBC and still raise."""
     tcfg = TConfig(system='NTSC')
     bank = TF.make_demod_bank(tcfg, device='cpu')
-    with pytest.raises(NotImplementedError, match='batch 1'):
-        TFR.Framer(tcfg, bank, capture=np.zeros(10, np.uint16), batch=1,
-                   device='cpu')
+    fr = TFR.Framer(tcfg, bank, capture=np.zeros(10, np.uint16), batch=1,
+                    device='cpu')
+    assert fr.prefetcher is None and fr.capture_dev.shape == (10,)
+    with pytest.raises(ValueError, match='exactly one'):
+        TFR.Framer(tcfg, bank, batch=1, device='cpu')
     # the tape systems have no laserdisc TBC
     vcfg = TConfig(system='VHS')
     with pytest.raises(NotImplementedError, match='C2'):

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from ld_decode_tpu.audio import cx as JCX
+from ld_decode_tpu.audio.downscale import downscale_audio as j_downscale
 from ld_decode_tpu.comb.comb_ntsc import PulldownAssembler as JPulldown
 from ld_decode_tpu.io import export_sink as JS
 from ld_decode_tpu.io import loaders as JL
@@ -18,6 +19,7 @@ from ld_decode_tpu.utils import params as JP
 from ld_decode_tpu.vbi import metadata as JM
 from ld_decode_tpu.vbi import philips as JPH
 from ld_decode_tpu_torch.audio import cx as TCX
+from ld_decode_tpu_torch.audio.downscale import downscale_audio as t_downscale
 from ld_decode_tpu_torch.comb.comb_ntsc import PulldownAssembler as TPulldown
 from ld_decode_tpu_torch.io import export_sink as TS
 from ld_decode_tpu_torch.io import loaders as TL
@@ -214,3 +216,23 @@ def test_pulldown_assembler_equal():
         for (jf, jc), (tf, tc) in zip(je, te):
             assert jc == tc
             np.testing.assert_array_equal(jf, tf)
+
+
+@pytest.mark.parametrize('system', ['NTSC', 'PAL'])
+def test_downscale_audio_equal(system):
+    """The 48 kHz chase of the sequential decode: ticks mapped through a
+    field's wandering line table, with a time offset carried in."""
+    rng = np.random.default_rng(16)
+    cfg_t, cfg_j = TP.DecoderConfig(system=system), \
+        JP.DecoderConfig(system=system)
+    lc = cfg_t.sys.frame_lines // 2
+    ll = (np.arange(lc + 4) * cfg_t.linelen + 30000.5
+          + np.cumsum(rng.normal(0, 0.3, lc + 4)))
+    n = 12000
+    audio = {'audio_left': rng.normal(2.3e6, 5e4, n).astype(np.float32),
+             'audio_right': rng.normal(2.8e6, 5e4, n).astype(np.float32)}
+    for off in (0.0, 1.3e-5):
+        a, ao = t_downscale(audio, ll, cfg_t, lc, off)
+        b, bo = j_downscale(audio, ll, cfg_j, lc, off)
+        np.testing.assert_array_equal(a, b)
+        assert ao == bo and a.dtype == np.int16

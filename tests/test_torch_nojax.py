@@ -15,7 +15,8 @@ PORT_FILES = [os.path.join(d, f)
               for d, _, fs in os.walk(os.path.join(ROOT, 'ld_decode_tpu_torch'))
               for f in fs if f.endswith('.py')] \
     + [os.path.join(ROOT, f) for f in ('lddecode_torch.py',
-                                       'ldchain_torch.py', 'chip_smoke.py')]
+                                       'ldchain_torch.py', 'ldexport_torch.py',
+                                       'ldview_torch.py', 'chip_smoke.py')]
 FORBIDDEN = re.compile(
     r'^\s*(import\s+jax\b|from\s+jax\b|import\s+ld_decode_tpu\b(?!_torch)'
     r'|from\s+ld_decode_tpu\b(?!_torch))', re.M)
@@ -35,7 +36,10 @@ def test_port_sources_import_no_jax():
             'ld_decode_tpu_torch/comb/comb_pal.py',
             'ld_decode_tpu_torch/audio/efm.py',
             'ld_decode_tpu_torch/audio/circ.py',
-            'ld_decode_tpu_torch/audio/subcode.py'} <= names
+            'ld_decode_tpu_torch/audio/subcode.py',
+            'ld_decode_tpu_torch/audio/cuda_cx.py',
+            'ld_decode_tpu_torch/audio/downscale.py',
+            'ldexport_torch.py', 'ldview_torch.py'} <= names
     for path in PORT_FILES:
         with open(path) as f:
             m = FORBIDDEN.search(f.read())
@@ -50,7 +54,9 @@ import numpy as np
 import torch
 import lddecode_torch
 import ldchain_torch
-from ld_decode_tpu_torch.audio import circ, cx, efm, subcode
+import ldexport_torch
+import ldview_torch
+from ld_decode_tpu_torch.audio import circ, cuda_cx, cx, downscale, efm, subcode
 from ld_decode_tpu_torch.comb import batch, comb_ntsc, comb_pal, optflow
 from ld_decode_tpu_torch.io import export_sink
 from ld_decode_tpu_torch.models import encode as E
@@ -98,6 +104,15 @@ q = subcode.encode_q_position(1, 1, 10, 20)
 assert subcode.decode_q(q) is not None
 assert efm.EFM_DECODE[efm.EFM_CODES[77]] == 77
 assert circ.circ_encode(np.zeros((4, 24), np.uint8)).shape[1] == 32
+# the streaming NTSC comb and file-level CX (K3's plain version on the CPU)
+sc = comb_ntsc.NTSCComb(comb_ntsc.CombConfig(dim=2, debug2d=False),
+                        device='cpu')
+out = sc.process(np.full(525 * 910, 20000, np.uint16))
+assert out.shape == (480, 744, 3) and out.dtype == np.uint16
+fast, slow, ok = cx.envelope_followers_blocked(
+    np.full(40000, 500.0), core=4096, warm=40000, device='cpu')
+assert ok and fast.shape == (40000,) and abs(float(fast[-1]) - 500) < 1
+assert cuda_cx.envelope_lanes.launches == 0
 assert not [m for m, mod in sys.modules.items() if mod is not None
             and (m in ('jax', 'ld_decode_tpu')
                  or m.startswith(('jax.', 'ld_decode_tpu.')))]

@@ -420,3 +420,30 @@ def test_pal_field_window_check():
     with pytest.raises(ValueError, match='nblocks >= 56'):
         FieldDecoder(cfg, bank, nblocks=52, device='cpu')
     FieldDecoder(cfg, bank, nblocks=56, device='cpu')
+
+
+def test_pilot_line_median_at_the_wrap(monkeypatch):
+    """The pilot pass moves a line by the plain median of its pilot
+    fractions (the reference's pass; the JAX package's and the port's
+    alike).  Where a line's fractions straddle the 0/1 wrap, one fraction
+    crossing it moves the median to the next order statistic: here 0.09
+    of a cycle, 0.24 px -- what chip_smoke.py phase 15 saw card vs CPU on
+    a PAL line below the picture (ROADMAP.md Queue 3: the pilot median)."""
+    L, W = 4, 7
+    moved = []
+    for first in (0.001, 0.9995):
+        frac = torch.full((1, L, W), 0.5)
+        # 7 crossings: the pass drops the first and the last of a line
+        frac[0, 3, 1:6] = torch.tensor([first, 0.02, 0.9, 0.99, 0.999])
+        cross = torch.ones((1, L, W), dtype=torch.bool)
+        monkeypatch.setattr(TPAL, 'pilot_offsets',
+                            lambda *_a, f=frac, c=cross: (f, c))
+        lli = torch.arange(L, dtype=torch.int32)[None] * 2560 + 5000
+        li, lf = TPAL._refine_pilot_once(None, None, lli, torch.zeros(1, L),
+                                         2560, 40.0, relative_only=False)
+        moved.append(_loc(li, lf)[0] - _loc(lli, torch.zeros(1, L))[0])
+    assert np.abs(moved[0][:3]).max() == 0 == np.abs(moved[1][:3]).max()
+    # medians 0.9 and 0.99 against the target 0.5, a quarter of 40/3.75 px
+    # a cycle
+    assert moved[0][3] == pytest.approx((0.5 - 0.9) * 40 / 3.75 / 4, abs=1e-5)
+    assert moved[0][3] - moved[1][3] == pytest.approx(0.24, abs=1e-5)
