@@ -43,7 +43,10 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
  15. sequential decode path: the NTSC capture of phase 4 as an .lds through
      Framer(loader=..., batch=1) (nblocks 66), 4 frames on the card, 2 of
      them again on the CPU, card vs CPU to the decode budgets, K1 launched
-     3 times a decoded field and never its plain version; then PAL on the
+     3 times a decoded field and never its plain version; one read with
+     full_decode=False (the JAX package's fourth positional parameter):
+     the fields located with the full decode's hsync-stage line locations
+     and its VBI, no frame, picture or audio, no K1 launch; then PAL on the
      `palbars` capture (nblocks 56), 1 launch a field;
  16. streaming comb: NTSCComb(dim=3, flow) over 6 textured frames on the
      card, K2 9 times an emitted frame, all on the row path; one frame
@@ -58,7 +61,20 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
  18. the two-step CLIs in-process: ldexport_torch.py -d 3 (--comb-batch 1
      and 8, -a on phase 6's .pcm repeated past 32,768 samples) on phase
      6's .tbc, ldexport_torch.py --pal -d 3 on phase 14's .tbc, and
-     ldview_torch.py seeking CAV frame 902 (a 744 x 480 image).
+     ldview_torch.py seeking CAV frame 902 (a 744 x 480 image);
+ 19. the NN comb (cuDNN, no hand kernel): TF32 shown off; NNComb() forward
+     on a (1, 525, 910, 3) frame card vs CPU within 5e-5 of max|out|;
+     train_nn_comb at its defaults (250 steps, batch 8, 64 x 256) below
+     the loss bound 80; 3 train steps on identical batches card vs CPU;
+     comb_frame_nn card vs CPU (the comb budget); the training pairs of
+     phase 6's .tbc frames card vs CPU; ldexport_torch.py -t -F writing
+     N-2 pairs; the device time of a forward and of a train step;
+ 20. the VHS tape decode (cuFFT): a flat-50 tape capture at 8 fsc through
+     decode_vhs in 4 windows of nblocks 66, card vs CPU (luma 1 LSB, demod
+     1e-6 of its scale), the levels and audio carriers, the rate in
+     MSa/s; recover_color_under on 2^22 samples (correlation with the
+     truth, card vs CPU); the host copies fdls, filtertools, filtermaker
+     and iec60857 once each.
 The line before the last is the kernel JSON; the last line is the result.
 """
 
@@ -1028,6 +1044,8 @@ def seq_decode_phase(torch, np, cfg, cap, bank, d: str):
         fail(f'sequential decode: {len(gpu)} frames, CAV {cav}')
     if launches != per * nvalid or launches == 0:
         fail(f'K1 launches {launches}, expected {per * nvalid}')
+    locate_only_check(np, FR, CR, cfg, bank, loader, path, p, gpu,
+                      [x[1] for x in steps if x[0] == 'cuda'])
 
     bank_cpu = F.make_demod_bank(cfg, np.complex64, device='cpu')
     t0 = time.perf_counter()
@@ -1086,6 +1104,35 @@ def seq_decode_phase(torch, np, cfg, cap, bank, d: str):
     if cfg.system == 'NTSC' and (dtail > 0.02 or tmax > 4):
         fail('NTSC sequential tail lines outside the budgets')
     return launches, gpu[0][0]
+
+
+def locate_only_check(np, FR, CR, cfg, bank, loader, path, p, full,
+                      hsync_stage):
+    """Framer(cfg, bank, loader, False), the JAX package's positional
+    full_decode=False: the first frame's fields located on the card with
+    the line locations of the full decode's hsync stage (bit for bit: the
+    same code on the same card) and its VBI, no frame, no picture, no audio
+    and no line resample."""
+    loc = FR.Framer(cfg, bank, loader, False, batch=1, nblocks=p['nblocks'],
+                    device='cuda')
+    CR.resample_lines_batch.launches = 0
+    with open(path, 'rb') as fd:
+        frame, audio, nxt, fields = loc.readframe(fd, p['start'], True)
+    k1 = CR.resample_lines_batch.launches
+    ok = frame is None and audio is None and nxt == full[0][2] and k1 == 0
+    for f, ff in zip(fields, full[0][3]):
+        ok &= any(h.shape == f.linelocs.shape
+                  and np.array_equal(h, f.linelocs) for h in hsync_stage)
+        ok &= (f.vbi, f.linecode, f.istop, f.linecount) \
+            == (ff.vbi, ff.linecode, ff.istop, ff.linecount)
+        ok &= f.dspicture is None and f.dsaudio is None \
+            and f.burstlevel is None
+    print(f'full_decode=False: frame {frame is not None}, audio '
+          f'{audio is not None}, next sample {nxt} (full decode '
+          f'{full[0][2]}), line locations = the hsync stage, VBI '
+          f'{loc.vbi.get("framenr")} as the full decode; K1 launches {k1}')
+    if not ok:
+        fail('full_decode=False does not locate as the full decode does')
 
 
 def _textured(np, base, n: int, seed: int):
@@ -1400,6 +1447,242 @@ def two_step_phase(torch, np, ntsc_cli, pal_cli, d: str):
     return dict(k2=k2, k3=k3, k1_view=k1)
 
 
+# NN comb card vs CPU: the forward pass within 5e-5 of max|out| (TF32 would
+# show as ~5e-4), and the comb's card vs CPU RGB budget (phase 8)
+NN_FWD_TOL = 5e-5
+NN_TRAIN_LOSS = 80.0    # IRE^2, tests/test_nn_comb.py's bound
+
+
+def _state_close(a, b) -> float:
+    return max(float((a[k].cpu() - b[k].cpu()).abs().max()) for k in a)
+
+
+def nn_comb_phase(torch, np, ntsc_cli, d: str):
+    """The NN comb at full width: TF32 off, the forward pass, the default
+    training run, three train steps, comb_frame_nn and the training pairs,
+    each on the card against the CPU, and ldexport_torch.py -t."""
+    phase('19 NN comb')
+    import ldexport_torch
+    from ld_decode_tpu_torch.comb import comb_ntsc as CN
+    from ld_decode_tpu_torch.models import nn_comb as NC
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    print(f'cudnn.allow_tf32 {tf32[0]}, cuda.matmul.allow_tf32 {tf32[1]}')
+    if any(tf32):
+        fail('TF32 is on: the convolutions would not run in full float32')
+    _, out = ntsc_cli
+    frames = np.fromfile(out + '.tbc', '<u2').reshape(-1, CN.IN_Y, CN.IN_X)
+
+    # the forward pass on one full frame, the same weights on both
+    model = NC.NNComb().cuda()
+    cpu_model = NC.NNComb()
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    raw = torch.from_numpy(frames[1].astype(np.int32))
+    flip = torch.where(raw[:, 0] == 16384, 1.0, -1.0)
+    x = NC.model_inputs(raw, flip)[None]
+    with torch.no_grad():
+        g = model(x.cuda())
+        c = cpu_model(x)
+    err = float((g.cpu() - c).abs().max()) / float(c.abs().max())
+    with torch.no_grad():
+        xg = x.cuda()
+        fwd_ms = _event_ms(torch, lambda: model(xg))
+    print(f'NNComb() forward on {tuple(x.shape)}: output on '
+          f'{g.device.type}, card vs CPU max|d| {err:.2e} of max|out| '
+          f'(budget {NN_FWD_TOL:g}); {fwd_ms:.3f} ms a forward (CUDA '
+          f'events, median of 5)')
+    if g.device.type != 'cuda' or err > NN_FWD_TOL:
+        fail('NN forward: card vs CPU outside the budget')
+
+    # the default training run on the card, twice: the first run in the
+    # process also pays cuDNN's first use of each convolution shape
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trained, loss = NC.train_nn_comb(device='cuda')
+        torch.cuda.synchronize()
+        runs.append((loss, time.perf_counter() - t0))
+    print('train_nn_comb() at its defaults (250 steps, batch 8, 64 x 256): '
+          + ', '.join(f'loss {l:.3f} IRE^2 in {s:.2f} s' for l, s in runs)
+          + f' (first and second run; bound {NN_TRAIN_LOSS})')
+    if not all(l < NN_TRAIN_LOSS for l, _ in runs) \
+            or next(trained.parameters()).device.type != 'cuda':
+        fail('NN training did not reach the loss bound on the card')
+
+    # three train steps on identical batches, card vs CPU
+    gen = torch.Generator().manual_seed(RNG_SEED)
+    batches = [NC.synth_batch(gen, 8, 64, 256)[:2] for _ in range(3)]
+    a, b = NC.NNComb().cuda(), NC.NNComb()
+    b.load_state_dict({k: v.cpu() for k, v in a.state_dict().items()})
+    oa, ob = NC.make_optimizer(a, 3e-3), NC.make_optimizer(b, 3e-3)
+    la, lb = [], []
+    for inp, clp in batches:
+        la.append(float(NC.train_step(a, oa, inp.cuda(), clp.cuda())))
+        lb.append(float(NC.train_step(b, ob, inp, clp)))
+    dparam = _state_close(a.state_dict(), b.state_dict())
+    dloss = max(abs(p - q) / abs(q) for p, q in zip(la, lb))
+    inp, clp = batches[0][0].cuda(), batches[0][1].cuda()
+    step_ms = _event_ms(torch, lambda: NC.train_step(a, oa, inp, clp))
+    print(f'3 train steps, card vs CPU: losses {la} / {lb} (max rel '
+          f'{dloss:.2e}), parameters max|d| {dparam:.2e} (budget 0.01 * lr '
+          f'= 3e-5); {step_ms:.3f} ms a train step at batch 8 x 64 x 256 '
+          f'(CUDA events, median of 5)')
+    if dloss > 1e-5 or dparam > 3e-5:
+        fail('train steps: card vs CPU outside the budget')
+
+    # comb_frame_nn on one frame, the trained weights on both
+    cfg = CN.CombConfig(dim=2)
+    cpu_trained = NC.NNComb()
+    cpu_trained.load_state_dict({k: v.cpu() for k, v in
+                                 trained.state_dict().items()})
+    rg, abg = NC.comb_frame_nn(raw.cuda(), trained, -1.0, cfg)
+    rc, abc = NC.comb_frame_nn(raw, cpu_trained, -1.0, cfg)
+    dv = np.abs(rg.cpu().numpy().astype(np.int64) - rc.numpy())
+    p999 = float(np.percentile(dv, 99.9))
+    print(f'comb_frame_nn {tuple(rg.shape)} on {rg.device.type}: card vs '
+          f'CPU p99.9 {p999} max {int(dv.max())} LSB (budget {COMB_P999} / '
+          f'{COMB_MAX}), AGC carry {abg:.6f} / {abc:.6f}')
+    if rg.device.type != 'cuda' or p999 > COMB_P999 or dv.max() > COMB_MAX \
+            or abs(abg - abc) > 1e-5 * abs(abc):
+        fail('comb_frame_nn: card vs CPU outside the budget')
+
+    # the training pairs of the decoded .tbc frames
+    gi, gc = NC.training_pairs_from_frames(frames, device='cuda')
+    ci, cc = NC.training_pairs_from_frames(frames, device='cpu')
+    dclp = float(np.abs(gc - cc).max()) / float(np.abs(cc).max())
+    print(f'training_pairs_from_frames on {len(frames)} .tbc frames: '
+          f'{gi.shape[0]} pairs, inputs equal {np.array_equal(gi, ci)}, clp '
+          f'max|d| {dclp:.2e} of its peak')
+    if gi.shape != (len(frames) - 2, CN.IN_Y, CN.IN_X, 3) \
+            or not np.array_equal(gi, ci) or dclp > 1e-5:
+        fail('training pairs: card vs CPU outside the budget')
+
+    o = os.path.join(d, 'train')
+    t0 = time.perf_counter()
+    rc_ = ldexport_torch.main([out + '.tbc', o, '-t', '-F'])
+    npz = np.load(o + '.train.npz')
+    imgs = [f for f in os.listdir(d) if f.startswith('train_')]
+    print(f'ldexport_torch.py -t -F: exit {rc_}, '
+          f'{time.perf_counter() - t0:.1f} s, {o}.train.npz inputs '
+          f'{npz["inputs"].shape} clp {npz["clp"].shape}, {len(imgs)} images')
+    if rc_ != 0 or npz['inputs'].shape != (len(frames) - 2, CN.IN_Y,
+                                           CN.IN_X, 3) or not imgs:
+        fail('ldexport -t did not write the training pairs')
+
+
+def vhs_phase(torch, np):
+    """The VHS tape decode window by window on the card against the CPU,
+    its levels and audio carriers, the color-under recovery, and the host
+    copies that ride with the slice."""
+    phase('20 VHS tape decode')
+    from ld_decode_tpu_torch.models import encode as E
+    from ld_decode_tpu_torch.ops import demod as D
+    from ld_decode_tpu_torch.tape import vhs as V
+    from ld_decode_tpu_torch.utils import fdls, filtermaker, filtertools
+    from ld_decode_tpu_torch.vbi import iec60857
+    cfg = V.vhs_config()
+    nblocks, nwin = 66, 4
+    n = D.stream_len(cfg, nblocks)
+    step = nblocks * cfg.block_keep
+    need = n + (nwin - 1) * step
+    nframes = int(np.ceil(need / (cfg.freq_hz / cfg.sys.fps))) + 1
+    t0 = time.perf_counter()
+    cap = E.encode_frames(cfg, nframes, E.EncodeSpec(pattern='flat50'))
+    cap = cap[:need].astype(np.float32)
+    print(f'tape capture: {nframes} frames at {cfg.freq_mhz:.4f} MSa/s, '
+          f'{need} samples ({nwin} windows of nblocks {nblocks}), made in '
+          f'{time.perf_counter() - t0:.1f} s')
+    gbank = V.make_vhs_bank(cfg, device='cuda')
+    cbank = V.make_vhs_bank(cfg, device='cpu')
+    dcap = torch.from_numpy(cap).cuda()
+    wins = [(k * step) for k in range(nwin)]
+    dluma, dhz, gvid, gaud = 0, 0.0, [], []
+    for w0 in wins:
+        gv, ga = V.decode_vhs(dcap[w0:w0 + n], gbank, cfg, nblocks)
+        cv, ca = V.decode_vhs(torch.from_numpy(cap[w0:w0 + n]), cbank, cfg,
+                              nblocks)
+        if gv['luma'].device.type != 'cuda':
+            fail('decode_vhs did not run on the card')
+        dluma = max(dluma, int((gv['luma'].cpu() - cv['luma']).abs().max()))
+        scale = float(cv['demod'].abs().max())
+        dhz = max(dhz, float((gv['demod'].cpu() - cv['demod']).abs().max())
+                  / scale)
+        gvid.append({k: v.cpu().numpy() for k, v in gv.items()})
+        gaud.append({k: v.cpu().numpy() for k, v in ga.items()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w0 in wins:
+        V.decode_vhs(dcap[w0:w0 + n], gbank, cfg, nblocks)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    msa = nwin * step / dt / 1e6
+    print(f'decode_vhs, {nwin} windows card vs CPU: luma max|d| {dluma} LSB '
+          f'(budget 1), demod max|d| {dhz:.2e} of its scale (budget 1e-6); '
+          f'{msa:.2f} MSa/s on the card ({nwin} windows in {dt * 1e3:.1f} '
+          f'ms)')
+    if dluma > 1 or dhz > 1e-6:
+        fail('decode_vhs: card vs CPU outside the budget')
+
+    ire = cfg.hztoire(np.concatenate([v['demod'] for v in gvid])
+                      .astype(np.float64))
+    tips = ire[ire < -25]
+    flat = ire[(ire > 25) & (ire < 75)]
+    luma = np.concatenate([v['luma'] for v in gvid]).astype(np.float64)
+    m = (ire > 25) & (ire < 75)
+    dl = float(np.abs(luma[m] / V.OUT_SCALE + V.MIN_IRE - ire[m]).max())
+    left = float(np.median(np.concatenate([a['audio_left'] for a in gaud])))
+    right = float(np.median(np.concatenate([a['audio_right']
+                                            for a in gaud])))
+    print(f'levels: flat {np.median(flat):.3f} IRE, sync tips p10 '
+          f'{np.percentile(tips, 10):.3f} / median {np.median(tips):.3f} '
+          f'IRE, luma scale max|d| {dl:.4f} IRE; audio carriers '
+          f'{left:.0f} / {right:.0f} Hz (want {cfg.sys.audio_lfreq:.0f} / '
+          f'{cfg.sys.audio_rfreq:.0f})')
+    if abs(np.median(flat) - 50) > 1 \
+            or abs(np.percentile(tips, 10) + 40) > 1 \
+            or not -40.5 < np.median(tips) < -30 or dl > 0.01 \
+            or abs(left - cfg.sys.audio_lfreq) > 1e4 \
+            or abs(right - cfg.sys.audio_rfreq) > 1e4:
+        fail('VHS levels or audio carriers off')
+
+    # color-under chroma on a 2^22-sample tape signal
+    fs, fsc, nc = cfg.freq_hz, cfg.sys.fsc_mhz * 1e6, 1 << 22
+    tt = np.arange(nc, dtype=np.float64) / fs
+    chroma = (1.0 + 0.3 * np.sin(2 * np.pi * 500.0 * tt)) * np.cos(
+        2 * np.pi * fsc * tt + 0.6 * np.sin(2 * np.pi * 300.0 * tt))
+    rf = np.cos(np.cumsum(np.full(nc, cfg.iretohz(50.0))) * (2 * np.pi / fs))
+    tape = (rf * 350.0 + 0.25 * 350.0 * V.encode_color_under(cfg, chroma)
+            + 512.0).astype(np.float32)
+    g = V.recover_color_under(torch.from_numpy(tape).cuda(), cfg)
+    c = V.recover_color_under(torch.from_numpy(tape), cfg).numpy()
+    gn = g.cpu().numpy()
+    dcu = float(np.abs(gn - c).max()) / float(np.abs(c).max())
+    sl = slice(nc // 8, -nc // 8)
+    out = gn[sl].astype(np.float64) / (0.25 * 350.0)
+    ref = chroma[sl]
+    corr = float(np.dot(ref, out) / np.sqrt(np.dot(ref, ref)
+                                            * np.dot(out, out)))
+    print(f'recover_color_under on {nc} samples ({g.device.type}): '
+          f'correlation {corr:.5f} with the truth, card vs CPU max|d| '
+          f'{dcu:.2e} of its peak')
+    if g.device.type != 'cuda' or corr <= 0.98 or dcu > 1e-4:
+        fail('color-under recovery off')
+
+    # the host copies this slice added, once each
+    inv = filtermaker.design_inventory()
+    text, _ = filtermaker.render_header()
+    v = iec60857.interpret_iec60857(0, 0xF80123, 0xF80123)
+    b, a_ = fdls.fdls_from_filter(*inv['deemp_vhs'], 1, 1)
+    rep = filtertools.response_report(b, a_)
+    print(f'host copies: {len(inv)} designs, ldd_filters.h {len(text)} '
+          f'chars, IEC 60857 {v.disc_type} picture {v.picture_number}, '
+          f'VHS deemp FDLS refit peak {rep["peak_db"]:.2f} dB')
+    if v.picture_number != 0x80123 or len(inv) < 17:
+        fail('host copies')
+
+
 def main():
     try:
         import numpy as np
@@ -1452,6 +1735,8 @@ def run(torch, np, work: str):
     k2_stream = stream_comb_phase(torch, np, base)
     k3 = k3_phase(torch, np)
     two = two_step_phase(torch, np, ntsc_cli, pal_cli, _subdir(work, 'two'))
+    nn_comb_phase(torch, np, ntsc_cli, _subdir(work, 'nn'))
+    vhs_phase(torch, np)
     if 'jax' in sys.modules:
         fail('jax was imported')
 

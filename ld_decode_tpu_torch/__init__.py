@@ -1,10 +1,11 @@
 """ld-decode-tpu-torch: the PyTorch/CUDA port of the ld_decode_tpu decoder.
 
 The JAX package `ld_decode_tpu` stays the reference; this package mirrors
-its layout (ops/, tbc/, audio/, vbi/, io/, models/, utils/).  It imports
-neither jax nor the JAX package: the few numpy host modules it needs
+its layout (ops/, tbc/, audio/, vbi/, io/, models/, tape/, utils/).  It
+imports neither jax nor the JAX package: the numpy host modules it needs
 (params, log, loaders, metadata, despackle, encode, the Philips host
-slicer and the EFM digital-audio chain) are copies, which
+slicer, the EFM digital-audio chain, the IEC 60857 interpreter and the
+filter-design tools fdls, filtertools and filtermaker) are copies, which
 tests/test_torch_hostcopies.py and tests/test_torch_efm.py hold equal to
 the originals.
 """

@@ -443,10 +443,12 @@ class FieldDecoder:
         return video, audio, idx[:nvalid], val[:nvalid]
 
     def process_resident(self, capture: torch.Tensor, readsample: int,
-                         mtf_level: float = 0.0, audio_offset: float = 0.0
-                         ) -> Optional[FieldResult]:
+                         mtf_level: float = 0.0, audio_offset: float = 0.0,
+                         full_decode: bool = True) -> Optional[FieldResult]:
         """One field: device analyze, host vsync/line numbering, device
-        finish.  Returns None at EOF."""
+        finish.  Returns None at EOF.  full_decode=False leaves out the
+        picture and the audio; the line locations are the finish's, as in
+        the JAX package."""
         cfg = self.cfg
         rv = self.analyze_resident(capture, readsample, mtf_level)
         if rv is None:
@@ -489,6 +491,8 @@ class FieldDecoder:
             vsync_count=len(vsyncs), linelocs=linelocs,
             burstlevel=data['burstlevel'].astype(np.float64)[:nlines],
             vbi=interpret_philips(linecode), linecode=linecode)
+        if not full_decode:
+            return result
         result.dspicture = data['picture'].reshape(-1)[
             :linecount * cfg.sys.outlinelen].astype(np.uint16)
         if audio is not None:
@@ -500,10 +504,13 @@ class FieldDecoder:
     # ---------------- the --batch 1 decode ----------------
 
     def process(self, samples, mtf_level: float = 0.0,
-                audio_offset: float = 0.0) -> FieldResult:
+                audio_offset: float = 0.0,
+                full_decode: bool = True) -> FieldResult:
         """Decode one field from `samples` (length stream_len(cfg,
         nblocks)): the JAX package's FieldDecoder.process (reference
-        lddecode_core.py:889-957, 1165-1191, 1037-1048)."""
+        lddecode_core.py:889-957, 1165-1191, 1037-1048).  full_decode=False
+        skips the burst or pilot passes, the picture and the audio: the
+        line locations stay at the hsync stage."""
         cfg = self.cfg
         video, audio = self.demod(samples, mtf_level)
         peaks, vals = self.sync_peaks(video)
@@ -521,7 +528,9 @@ class FieldDecoder:
                                peak_count=len(peaks), vsync_count=len(vsyncs))
 
         burstlevel = None
-        if cfg.system == 'NTSC':
+        if not full_decode:
+            linelocs = linelocs2
+        elif cfg.system == 'NTSC':
             ll3, burstlevel = self.refine_linelocs_burst(video, linelocs2,
                                                          linecount)
             ll4, burstlevel = self.refine_linelocs_burst(video, ll3,
@@ -544,6 +553,8 @@ class FieldDecoder:
             tbcstart=nextfieldoffset, peak_count=len(peaks),
             vsync_count=len(vsyncs), linelocs=linelocs,
             burstlevel=burstlevel, vbi=vbi, linecode=linecode)
+        if not full_decode:
+            return result
         result.dspicture = self.downscale_picture(video, linelocs, linecount,
                                                   burstlevel)
         if audio is not None:

@@ -58,14 +58,26 @@ def weave_device(pa: torch.Tensor, ia: int, pb: torch.Tensor, ib: int,
 
 class Framer:
     def __init__(self, cfg: DecoderConfig, bank: DemodBank,
-                 loader: Callable = None, nblocks: int = 66,
-                 capture: np.ndarray = None, batch: int = 8,
+                 loader: Callable = None, full_decode: bool = True,
+                 nblocks: int = 66, capture: np.ndarray = None,
+                 batch: int = 8,
                  despackle: bool = False, segment_samples: int = 0,
                  rot_level: float = 40.0, flip_fields: bool = False,
                  bff: bool = False, device=DEFAULT_DEVICE,
                  fetch_picture: bool = True):
         """Either `loader` (file reads) or `capture` (the whole capture kept
-        on the device) must be given.
+        on the device) must be given.  The parameters up to `nblocks` take
+        the JAX package's positions; two defaults differ from it on
+        purpose: `batch` is 8 here and 1 there (so `Framer(cfg, bank,
+        loader)` decodes batched here and sequentially there), and
+        `pic_mode` (how the JAX package ships pictures over a slow device
+        link) does not exist here, since the port copies the raw picture.
+
+        full_decode=False locates fields without decoding their content,
+        as the JAX package does: at batch=1 a field skips the burst or
+        pilot passes (its line locations stay at the hsync stage) and has
+        no picture and no audio; at batch > 1 the fields decode in full.
+        Either way readframe returns no frame (None) and its fields.
 
         batch > 1: batches of `batch` speculative fields run through the
         device pipeline, a loader's reads going into a sliding
@@ -86,6 +98,7 @@ class Framer:
         self.device = resolve_device(device)
         self.bank = bank.to(self.device)
         self.loader = loader
+        self.full_decode = full_decode
         self.despackle = despackle
         self.rot_level = rot_level
         self.flip_fields = flip_fields
@@ -187,7 +200,7 @@ class Framer:
             elif self.capture_dev is not None:
                 f = self.decoder.process_resident(
                     self.capture_dev, readsample, self.mtf_level,
-                    self.audio_offset)
+                    self.audio_offset, self.full_decode)
                 if f is None:
                     return None, None, None
             else:
@@ -195,7 +208,7 @@ class Framer:
                 if stream is None:
                     return None, None, None
                 f = self.decoder.process(stream, self.mtf_level,
-                                         self.audio_offset)
+                                         self.audio_offset, self.full_decode)
             # advance from the actual decode-window start
             base = f.readsample if f.readsample >= 0 else readsample
             nextsample = base + f.nextfieldoffset
@@ -262,7 +275,8 @@ class Framer:
     def readframe(self, infile, sample: int, firstframe: bool = False,
                   CAV: bool = False):
         """Pair two fields into a frame: (frame u16, audio i16, next
-        sample, fields), or Nones at EOF."""
+        sample, fields), or Nones at EOF.  With full_decode=False the frame
+        is None."""
         cfg = self.cfg
         fieldcount = 0
         fields = [None, None]
@@ -293,11 +307,11 @@ class Framer:
         else:
             conaudio = None
 
-        combined = self.formatoutput(fields)
+        combined = self.formatoutput(fields) if self.full_decode else None
         if self.despackle and isinstance(combined, torch.Tensor):
             # despackle is a host numpy pass
             combined = combined.cpu().numpy().astype(np.uint16)
-        if self.despackle:
+        if self.despackle and combined is not None:
             # rot concealment post-pass (reference tbc.cpp:1528-1565)
             from ld_decode_tpu_torch.tbc.despackle import despackle as _dsp
             scale = ((0xc800 - 0x0400) if cfg.system == 'NTSC'
@@ -313,7 +327,7 @@ class Framer:
         if isinstance(combined, torch.Tensor):
             combined[:16] = torch.from_numpy(
                 np.asarray(words, np.int32)).to(combined.device)
-        else:
+        elif combined is not None:
             combined[:16] = words
 
         # MTF compensation feedback: the CAV frame number drives the RF

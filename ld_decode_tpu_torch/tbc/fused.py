@@ -47,9 +47,9 @@ def require_tbc(cfg: DecoderConfig):
     """The laserdisc TBC decodes NTSC and PAL; the tape systems have their
     own chain."""
     if cfg.system not in ('NTSC', 'PAL'):
-        raise NotImplementedError(
-            f'system {cfg.system!r} has no laserdisc TBC (the tape decode, '
-            f'tape/vhs.py, is not ported: ROADMAP.md Queue 1, item C2)')
+        raise ValueError(
+            f'system={cfg.system!r} is demod-only: use '
+            f'ld_decode_tpu_torch.tape.vhs, not the TBC')
 
 
 def audio_maxt(cfg) -> int:

@@ -21,8 +21,11 @@ block-parallel evaluation on the device (kernel K3).
 As in ldexport_tpu.py, -l stops the video after N frames while the audio is
 expanded in full before the video starts (the reference tools' bug family
 recorded in ROADMAP.md Queue 3 for ldchain_tpu.py:218): the .pcm runs past
-the video.  -t (NN-comb training mode) needs models/nn_comb.py, which the
-port does not have yet (ROADMAP.md Queue 1, item C3): it raises.
+the video.  -t (NN-comb training mode, reference comb -t) forces -d 3 and
+per-frame images, collects up to 128 raw .tbc frames (NTSC only) and writes
+their 3D-comb-supervised training pairs to <out>.train.npz
+(models/nn_comb.py, on the same device), which either package's
+train_nn_comb(data=...) reads.
 """
 
 import argparse
@@ -30,9 +33,8 @@ import sys
 
 import numpy as np
 
-TRAINING_TODO = ('ldexport -t writes NN-comb training pairs through '
-                 'models/nn_comb.py, which is not ported (ROADMAP.md Queue 1, '
-                 'item C3)')
+TRAIN_FRAMES = 128   # raw frames kept for -t (~122 MB; more adds nothing
+                     # for the small NN)
 
 
 def parse_args(argv=None):
@@ -95,8 +97,9 @@ def parse_args(argv=None):
                    help='write each frame as <out>_<n>.rgb instead of '
                         'one stream (comb -f image mode)')
     p.add_argument('-t', '--training', action='store_true',
-                   help='NN-comb training mode (reference comb -t): not '
-                        'ported yet, raises')
+                   help='NN-comb training mode (reference comb -t): '
+                        'forces -d 3 and per-frame images, writes '
+                        '<out>.train.npz')
     p.add_argument('--comb-batch', type=int, default=1,
                    help='comb N frames per device call (comb/batch.py); '
                         'debug flags force the frame-at-a-time comb')
@@ -182,7 +185,10 @@ def _ntsc_comb(args, device):
 def main(argv=None):
     args = parse_args(argv)
     if args.training:
-        raise NotImplementedError(TRAINING_TODO)
+        # reference -t: training mode forces dim 3 + image output
+        # (comb-ntsc.cxx:1057-1061)
+        args.dim = 3
+        args.write_images = True
     from ld_decode_tpu_torch.audio.cx import CXExpander
     from ld_decode_tpu_torch.io.export_sink import VideoSink
     from ld_decode_tpu_torch.utils.device import resolve
@@ -217,6 +223,13 @@ def main(argv=None):
         from ld_decode_tpu_torch.comb.comb_ntsc import PulldownAssembler
         pulldown = PulldownAssembler()
 
+    # -t: the raw .tbc frames for the training-pair writer
+    train_frames = [] if args.training and not args.pal else None
+
+    def keep_for_training(frames):
+        if train_frames is not None:
+            train_frames.extend(frames[:TRAIN_FRAMES - len(train_frames)])
+
     def emit(rgb, words):
         if args.length is not None and sink.nframes >= args.length:
             return
@@ -248,8 +261,10 @@ def main(argv=None):
                 raw = f.read(frame_bytes * args.comb_batch)
                 n = len(raw) // frame_bytes
                 if n:
-                    handle = comb.feed(np.frombuffer(
-                        raw[:n * frame_bytes], np.uint16).reshape(n, -1))
+                    win = np.frombuffer(raw[:n * frame_bytes],
+                                        np.uint16).reshape(n, -1)
+                    keep_for_training(win)
+                    handle = comb.feed(win)
                 if pending is not None:
                     for rgb, w in zip(*comb.collect(pending)):
                         emit(rgb, w)
@@ -267,7 +282,9 @@ def main(argv=None):
                 buf = f.read(frame_bytes)
                 if len(buf) < frame_bytes:
                     break
-                rgb = comb.process(np.frombuffer(buf, np.uint16))
+                frame = np.frombuffer(buf, np.uint16)
+                keep_for_training([frame])
+                rgb = comb.process(frame)
                 if rgb is None:          # 3D warmup
                     continue
                 if getattr(comb, 'last_debug2d', None) is not None:
@@ -287,6 +304,12 @@ def main(argv=None):
             sink.write(tail)
 
     sink.close()
+    if train_frames is not None and len(train_frames) >= 3:
+        from ld_decode_tpu_torch.models.nn_comb import write_training_file
+        npairs = write_training_file(np.stack(train_frames),
+                                     args.out + '.train.npz', device=device)
+        print(f'wrote {npairs} training pairs to {args.out}.train.npz',
+              file=sys.stderr)
     print(f'wrote {sink.nframes} frames', file=sys.stderr)
     return 0
 

@@ -127,11 +127,25 @@ def test_export_audio_cx(ntsc, tmp_path, monkeypatch):
         assert np.fromfile(out_t + '.rgb', '<u2').size == FRAME_RGB
 
 
-def test_export_training_raises(ntsc, tmp_path):
+def test_export_training_raises(ntsc, tmp_path, monkeypatch):
+    """-t (NN-comb training mode) on the decoded .tbc: the same per-frame
+    images as ldexport_tpu.py -t within 1 LSB, and the same training pairs
+    (the inputs equal, the clp targets within 1e-5 of their peak)."""
+    monkeypatch.setattr(shutil, 'which', lambda *_: None)
     d, _ = ntsc
-    with pytest.raises(NotImplementedError, match='C3'):
-        ldexport_torch.main([str(d / 'dec.tbc'), str(tmp_path / 'o'), '-t',
-                             '--device', 'cpu'])
+    out_j, out_t = _export(tmp_path, d / 'dec.tbc', ['-t', '-F'])
+    tj, tt = np.load(out_j + '.train.npz'), np.load(out_t + '.train.npz')
+    assert tt['inputs'].shape == tj['inputs'].shape == (1, 525, 910, 3)
+    np.testing.assert_array_equal(tt['inputs'], tj['inputs'])
+    assert np.abs(tt['clp'] - tj['clp']).max() \
+        <= 1e-5 * np.abs(tj['clp']).max()
+    names = sorted(p.name[len('torch'):] for p in tmp_path.glob('torch_*'))
+    assert names and names == sorted(p.name[len('jax'):]
+                                     for p in tmp_path.glob('jax_*'))
+    for n in names:
+        a = np.fromfile(out_j + n, '<u2')
+        b = np.fromfile(out_t + n, '<u2')
+        assert _lsb(b, a).max() <= 1
 
 
 @pytest.fixture(scope='module')

@@ -85,7 +85,8 @@ def test_framer_audio(pair):
 def test_framer_rejects_unported_modes():
     """batch=1 is the sequential decode (held to JAX in
     tests/test_torch_field_seq.py): no prefetcher, the capture resident;
-    the tape systems have no laserdisc TBC and still raise."""
+    the tape systems have no laserdisc TBC and raise, as in the JAX
+    package."""
     tcfg = TConfig(system='NTSC')
     bank = TF.make_demod_bank(tcfg, device='cpu')
     fr = TFR.Framer(tcfg, bank, capture=np.zeros(10, np.uint16), batch=1,
@@ -93,9 +94,9 @@ def test_framer_rejects_unported_modes():
     assert fr.prefetcher is None and fr.capture_dev.shape == (10,)
     with pytest.raises(ValueError, match='exactly one'):
         TFR.Framer(tcfg, bank, batch=1, device='cpu')
-    # the tape systems have no laserdisc TBC
+    # the tape systems have no laserdisc TBC (tape/vhs.py decodes them)
     vcfg = TConfig(system='VHS')
-    with pytest.raises(NotImplementedError, match='C2'):
+    with pytest.raises(ValueError, match='demod-only'):
         TFR.Framer(vcfg, bank, capture=np.zeros(10, np.uint16), batch=8,
                    device='cpu')
 

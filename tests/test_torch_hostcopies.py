@@ -1,5 +1,6 @@
 """PyTorch port: its copies of the JAX package's numpy host modules (the
-port imports nothing of the JAX package) behave exactly as the originals."""
+port imports nothing of the JAX package) behave exactly as the originals:
+every output equal in memory."""
 
 import dataclasses
 import io
@@ -7,6 +8,7 @@ import types
 
 import numpy as np
 import pytest
+import scipy.signal as sps
 
 from ld_decode_tpu.audio import cx as JCX
 from ld_decode_tpu.audio.downscale import downscale_audio as j_downscale
@@ -15,7 +17,11 @@ from ld_decode_tpu.io import export_sink as JS
 from ld_decode_tpu.io import loaders as JL
 from ld_decode_tpu.models import encode as JE
 from ld_decode_tpu.tbc.despackle import despackle as j_despackle
+from ld_decode_tpu.utils import fdls as JFD
+from ld_decode_tpu.utils import filtermaker as JFM
+from ld_decode_tpu.utils import filtertools as JFT
 from ld_decode_tpu.utils import params as JP
+from ld_decode_tpu.vbi import iec60857 as JIEC
 from ld_decode_tpu.vbi import metadata as JM
 from ld_decode_tpu.vbi import philips as JPH
 from ld_decode_tpu_torch.audio import cx as TCX
@@ -25,7 +31,11 @@ from ld_decode_tpu_torch.io import export_sink as TS
 from ld_decode_tpu_torch.io import loaders as TL
 from ld_decode_tpu_torch.models import encode as TE
 from ld_decode_tpu_torch.tbc.despackle import despackle as t_despackle
+from ld_decode_tpu_torch.utils import fdls as TFD
+from ld_decode_tpu_torch.utils import filtermaker as TFM
+from ld_decode_tpu_torch.utils import filtertools as TFT
 from ld_decode_tpu_torch.utils import params as TP
+from ld_decode_tpu_torch.vbi import iec60857 as TIEC
 from ld_decode_tpu_torch.vbi import metadata as TM
 from ld_decode_tpu_torch.vbi import philips as TPH
 
@@ -236,3 +246,95 @@ def test_downscale_audio_equal(system):
         b, bo = j_downscale(audio, ll, cfg_j, lc, off)
         np.testing.assert_array_equal(a, b)
         assert ao == bo and a.dtype == np.int16
+
+
+# every input of tests/test_iec60857.py
+IEC_CASES = [(0, 0xF80123, 0xF80123), (0x80D123, 0x88FFFF, 0),
+             (0, 0x80EEEE, 0), (0, 0xF2DD35, 0), (0x82E345, 0xF0DD00, 0),
+             (0, 0, 0x8A5DDD), (0x82CFFF, 0xF80001, 0),
+             (0x8DC000, 0xF80001, 0), (0x8BA000, 0xF80001, 0)]
+
+
+@pytest.mark.parametrize('words', IEC_CASES, ids=lambda w: '%06x-%06x-%06x'
+                         % w)
+def test_iec60857_equal(words):
+    """The full IEC 60857 interpretation, field for field."""
+    got = TIEC.interpret_iec60857(*words)
+    assert dataclasses.asdict(got) == dataclasses.asdict(
+        JIEC.interpret_iec60857(*words))
+
+
+def test_iec60857_field_codes_equal():
+    """interpret_field_codes over per-line nibble codes (through the port's
+    own vbi/metadata.py nibbles_to_code), with missing and short lines."""
+    codes = [
+        {16: [15, 8, 0, 1, 2, 3], 17: [15, 8, 0, 1, 2, 3], 18: None},
+        {16: [8, 13, 12, 1, 2, 3], 17: [8, 8, 15, 15, 15, 15], 18: None},
+        {19: None, 20: [8, 0, 14, 14, 14, 14]},
+        {16: [15, 2, 13, 13, 3, 5]},
+        {},
+    ]
+    for lc in codes:
+        for system in ('NTSC', 'PAL'):
+            assert dataclasses.asdict(TIEC.interpret_field_codes(lc, system)) \
+                == dataclasses.asdict(JIEC.interpret_field_codes(lc, system))
+
+
+def test_fdls_equal():
+    """FDLS designs from a target response, from a complex response and
+    from an existing filter."""
+    rng = np.random.default_rng(17)
+    w = np.linspace(0.01, np.pi * 0.95, 64)
+    am = 1.0 / (1.0 + (w / 0.6) ** 2)
+    th = -0.4 * w
+    for a, b in zip(TFD.fdls(w, am, th, 2, 2), JFD.fdls(w, am, th, 2, 2)):
+        np.testing.assert_array_equal(a, b)
+    resp = am * np.exp(1j * (th + rng.normal(0, 1e-3, w.size)))
+    for a, b in zip(TFD.fdls_from_response(w, resp, 1, 1, 0.5, 0.1),
+                    JFD.fdls_from_response(w, resp, 1, 1, 0.5, 0.1)):
+        np.testing.assert_array_equal(a, b)
+    ba = sps.butter(3, 0.2)
+    for a, b in zip(TFD.fdls_from_filter(*ba, 2, 3, 256),
+                    JFD.fdls_from_filter(*ba, 2, 3, 256)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_filtertools_equal():
+    """Response reports, the capture spectrum, the carrier
+    peak-to-background and the filter plot (matplotlib imported lazily)."""
+    ba = sps.butter(4, [0.1, 0.3], btype='bandpass')
+    np.testing.assert_array_equal(TFT.todb(ba[0], True), JFT.todb(ba[0], True))
+    np.testing.assert_array_equal(TFT.ba_to_fft(*ba, 1024),
+                                  JFT.ba_to_fft(*ba, 1024))
+    assert TFT.response_report(*ba) == JFT.response_report(*ba)
+    rng = np.random.default_rng(18)
+    t = np.arange(1 << 17)
+    cap = 500 * np.cos(2 * np.pi * 8.1 / 40 * t) + rng.normal(0, 20, t.size)
+    for a, b in zip(TFT.capture_spectrum(cap, nfft=4096),
+                    JFT.capture_spectrum(cap, nfft=4096)):
+        np.testing.assert_array_equal(a, b)
+    assert TFT.peak_to_background_db(cap) == JFT.peak_to_background_db(cap)
+    with pytest.raises(ValueError, match='too short'):
+        TFT.capture_spectrum(cap[:100])
+    import matplotlib
+    matplotlib.use('Agg')
+    ax_t, ax_j = TFT.plot_filter(*ba), JFT.plot_filter(*ba)
+    np.testing.assert_array_equal(ax_t.lines[0].get_ydata(),
+                                  ax_j.lines[0].get_ydata())
+
+
+def test_filtermaker_inventory_and_header_equal():
+    """The design inventory read from the port's own filters, CX and comb
+    designs, the reference inventory, and the rendered ldd_filters.h text,
+    all in memory (nothing is written under native/)."""
+    for tinv, jinv in ((TFM.design_inventory(), JFM.design_inventory()),
+                       (TFM.reference_inventory(),
+                        JFM.reference_inventory())):
+        assert list(tinv) == list(jinv)
+        for name in jinv:
+            for a, b in zip(tinv[name], jinv[name]):
+                np.testing.assert_array_equal(a, b, err_msg=name)
+    ttext, tinv = TFM.render_header()
+    jtext, _ = JFM.render_header()
+    assert ttext == jtext and len(tinv) >= 17
+    assert TFM.REFERENCE_OFFSETS == JFM.REFERENCE_OFFSETS

@@ -39,7 +39,13 @@ def test_port_sources_import_no_jax():
             'ld_decode_tpu_torch/audio/subcode.py',
             'ld_decode_tpu_torch/audio/cuda_cx.py',
             'ld_decode_tpu_torch/audio/downscale.py',
-            'ldexport_torch.py', 'ldview_torch.py'} <= names
+            'ldexport_torch.py', 'ldview_torch.py',
+            'ld_decode_tpu_torch/models/nn_comb.py',
+            'ld_decode_tpu_torch/tape/vhs.py',
+            'ld_decode_tpu_torch/vbi/iec60857.py',
+            'ld_decode_tpu_torch/utils/fdls.py',
+            'ld_decode_tpu_torch/utils/filtertools.py',
+            'ld_decode_tpu_torch/utils/filtermaker.py'} <= names
     for path in PORT_FILES:
         with open(path) as f:
             m = FORBIDDEN.search(f.read())
@@ -113,6 +119,26 @@ fast, slow, ok = cx.envelope_followers_blocked(
     np.full(40000, 500.0), core=4096, warm=40000, device='cpu')
 assert ok and fast.shape == (40000,) and abs(float(fast[-1]) - 500) < 1
 assert cuda_cx.envelope_lanes.launches == 0
+# the NN comb, the tape decode and the last host copies
+from ld_decode_tpu_torch.models import nn_comb
+from ld_decode_tpu_torch.tape import vhs
+from ld_decode_tpu_torch.utils import fdls, filtermaker, filtertools
+from ld_decode_tpu_torch.vbi import iec60857
+g = torch.Generator().manual_seed(0)
+inp, clp, *_ = nn_comb.synth_batch(g, 1, 16, 64)
+with torch.no_grad():
+    assert nn_comb.NNComb((4, 4), g)(inp).shape == (1, 16, 64)
+vcfg = vhs.vhs_config()
+nv = D.stream_len(vcfg, 4)
+tape = torch.from_numpy(E.encode_frames(vcfg, 1, E.EncodeSpec(
+    pattern='flat50'))[:nv].astype(np.float32))
+vid, aud = vhs.decode_vhs(tape, vhs.make_vhs_bank(vcfg, device='cpu'), vcfg,
+                          4)
+assert vid['luma'].dtype == torch.int32 and vid['luma'].shape[0] > 0
+assert len(filtermaker.design_inventory()) >= 17
+assert filtertools.todb(np.ones(4)).max() == 0.0
+assert len(fdls.fdls_from_filter([0.5, 0.5], [1.0], 0, 1)[0]) == 2
+assert iec60857.interpret_iec60857(0, 0xF80123, 0xF80123).disc_type == 'cav'
 assert not [m for m, mod in sys.modules.items() if mod is not None
             and (m in ('jax', 'ld_decode_tpu')
                  or m.startswith(('jax.', 'ld_decode_tpu.')))]
