@@ -74,7 +74,29 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      1e-6 of its scale), the levels and audio carriers, the rate in
      MSa/s; recover_color_under on 2^22 samples (correlation with the
      truth, card vs CPU); the host copies fdls, filtertools, filtermaker
-     and iec60857 once each.
+     and iec60857 once each;
+ 21. the loader path: phase 4's capture written as an .lds, decoded
+     segmented (a loader, batch 16, nblocks 52) once with the C++ unpack
+     (csrc/unpack.cpp, built with g++) and once with the numpy unpack:
+     the rate in MSa/s with the load, the unpack's time, the prefetcher's
+     t_unpack; the .tbc frames of both equal to the resident decode's;
+     fails unless the native route is the one taken where asked;
+ 22. the sharded decode (parallel/mesh.py over torch.distributed): worlds
+     of 1 rank over NCCL and 2 ranks over gloo on the one card, each rank
+     a subprocess of this script (--mesh-rank) with a timeout: the
+     sharded NTSC (batch 16, nblocks 52) and PAL (batch 16, nblocks 56)
+     pipelines against the single-rank batch, bit for bit except the
+     audio (JAX's allowance: 1 LSB on at most 16 ticks), the chained
+     scalars exact, K1 launched by every rank (NTSC the picture and 2
+     burst windows a call, PAL the picture; told apart by the wrapper's
+     window count, each shape held against its plain version in phase
+     3); the wall time a call per rank beside the single-rank batch
+     (one-card overhead, not scaling) and the peak
+     device memory per rank; the sharded demod at the production
+     blocklen (dp 1 x sp 2) against the unsharded demod; the sharded 3D
+     comb over 16 frames against the sequential chain; three
+     data-parallel NN steps against mesh=None at the CPU test's size, and
+     one at the trainer's default width (loss and dp-averaged gradients).
 The line before the last is the kernel JSON; the last line is the result.
 """
 
@@ -106,6 +128,9 @@ PAL_TAIL_ROWS, PAL_TAIL_MAX = 11, 16
 # chase maps through a moved line take another stage-2 sample (a jump of up
 # to a few hundred LSB) and are counted apart (tests/torch_parity.py)
 AUDIO_PICK_LSB, AUDIO_PICK_MAX = 8, 0.005
+# the sharded batch's audio against the single-rank batch's: JAX's own
+# allowance, 1 LSB on at most 16 ticks (tests/test_parallel.py:140-144)
+AUDIO_TICKS = 16
 # K3's dependent chain a step: FMUL -> {FMNMX, FFMA} -> FMNMX
 # (csrc/cx_envelope.cu), each ~4 cycles on Hopper's FP32 pipes
 K3_CHAIN_OPS, K3_OP_CYCLES = 3, 4
@@ -251,6 +276,10 @@ K1_CASES = [
     ('ntsc seq picture', 1, 66 * 15328, 263, 910, 2542.0, 0, None),
     ('ntsc seq burst window', 1, 66 * 15328, 263, 910, 2542.0, 16, 48),
     ('pal seq picture', 1, 56 * 15328, 313, 1135, 2560.0, 0, None),
+    # a rank's shard of the sharded batch of 16 fields over 2 ranks
+    ('ntsc shard picture', 8, 52 * 15328, 263, 910, 2542.0, 0, None),
+    ('ntsc shard burst window', 8, 52 * 15328, 263, 910, 2542.0, 16, 48),
+    ('pal shard picture', 8, 56 * 15328, 313, 1135, 2560.0, 0, None),
 ]
 
 
@@ -1683,7 +1712,507 @@ def vhs_phase(torch, np):
         fail('host copies')
 
 
+def loader_phase(torch, np, cfg, cap, d: str):
+    """The segmented decode (a loader over an .lds file, batch 16) of the
+    NTSC capture of phase 4, once per .lds unpack route, against the
+    resident decode of the same capture.  The file is shorter than two
+    chain horizons, so one segment holds all of it: its one unpack is
+    inside the first frame's time.  (scripts/loader_rate_torch.py times a
+    file of several segments.)"""
+    phase('21 loader: segmented .lds decode, native and numpy unpack')
+    from ld_decode_tpu_torch.io import loaders as L
+    from ld_decode_tpu_torch.io import native_unpack as NU
+    from ld_decode_tpu_torch.ops import filters as F
+    from ld_decode_tpu_torch.tbc import framer as FR
+    if not NU.available():
+        fail('the C++ unpack (csrc/unpack.cpp) did not build with g++')
+    p = DECODE_PATHS['NTSC']
+    path = os.path.join(d, 'ramp.lds')
+    NU.pack_4_40(cap).tofile(path)
+    bank = F.make_demod_bank(cfg, np.complex64, device='cuda')
+    spf = cfg.freq_hz / cfg.sys.fps
+
+    def decode(**source):
+        fr = FR.Framer(cfg, bank, batch=16, nblocks=p['nblocks'],
+                       device='cuda', **source)
+        with open(path, 'rb') as fd:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rv = fr.readframe(fd, p['start'], True)
+            pics, nums, sample = [rv[0]], [fr.vbi.get('framenr')], rv[2]
+            t1 = time.perf_counter()
+            while len(pics) <= p['want']:
+                rv = fr.readframe(fd, sample, False)
+                if rv[0] is None:
+                    break
+                pics.append(rv[0])
+                nums.append(fr.vbi.get('framenr'))
+                sample = rv[2]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return pics, nums, t1 - t0, t2 - t1, fr.prefetcher.stats
+
+    resident = decode(capture=cap)         # the reference; warms up
+    out = {}
+    for route in ('native', 'numpy'):
+        L.set_native(route == 'native')
+        if L.unpack_route() != route:
+            fail(f'the .lds unpack does not take the {route} route')
+        calls, secs = dict(L.unpack_calls), dict(L.unpack_seconds)
+        pics, nums, t_first, t_rest, st = decode(
+            loader=L.loader_for_path(path))
+        n_unpack = {k: L.unpack_calls[k] - calls[k] for k in calls}
+        t_unpack = L.unpack_seconds[route] - secs[route]
+        n, ns = len(pics), cap.shape[0]
+        print(f'{route} unpack: {n_unpack[route]} call(s), {t_unpack:.4f} s '
+              f'for {ns} samples ({ns / t_unpack / 1e6:.2f} MSa/s); decoded '
+              f'{n} frames in {t_first + t_rest:.3f} s: '
+              f'{n * spf / (t_first + t_rest) / 1e6:.2f} MSa/s with the load '
+              f'(first frame {t_first:.3f} s), '
+              f'{(n - 1) * spf / t_rest / 1e6:.2f} MSa/s after it; '
+              f'prefetcher t_unpack {st["t_unpack"]:.4f} s, t_fetch '
+              f'{st["t_fetch"]:.4f} s, batches {st["batches"]}')
+        if n_unpack[route] == 0 or sum(n_unpack.values()) != n_unpack[route]:
+            fail(f'unpack calls by route {n_unpack}: the {route} route '
+                 f'was not the one taken')
+        out[route] = (pics, nums)
+    L.set_native(True)
+    again = decode(capture=cap)
+    n = len(again[0])
+    print(f'resident decode: {n} frames in {again[2] + again[3]:.3f} s, '
+          f'{n * spf / (again[2] + again[3]) / 1e6:.2f} MSa/s (first frame '
+          f'{again[2]:.3f} s), {(n - 1) * spf / again[3] / 1e6:.2f} MSa/s '
+          f'after it')
+    for route, (pics, nums) in out.items():
+        if nums != resident[1] or len(pics) < p['least'] or any(
+                not np.array_equal(a, b) for a, b in zip(pics, resident[0])):
+            fail(f'the {route}-unpack segmented .tbc differs from the '
+                 f'resident decode\'s (CAV {nums[:3]}.. vs '
+                 f'{resident[1][:3]}..)')
+    print(f'.tbc bytes of both routes equal to the resident decode\'s '
+          f'({len(resident[0])} frames, CAV {resident[1][0]}..'
+          f'{resident[1][-1]})')
+
+
+# phase 22: one rank a process, each world on the backend
+# mesh.default_backend picks for it on one card (1 rank: NCCL; 2 ranks
+# share the card: gloo).  World 1 is also where the single-rank
+# references run.
+MESH_WORLDS = (1, 2)
+MESH_TIMEOUT_S = 300
+MESH_REPS = 3
+MESH_PIPELINES = {
+    'NTSC': dict(nblocks=52, batch=16, start=33046, frames=12, k1=1,
+                 k1_window=2),
+    'PAL': dict(nblocks=56, batch=16, start=PAL_START, frames=12, k1=1,
+                k1_window=0),
+}
+MESH_DEMOD_NBLOCKS, MESH_DEMOD_FIELDS = 52, 2
+MESH_COMB_FRAMES = 16
+# the CPU test's NN run (tests/torch_mesh_worker.py), and JAX's tolerances;
+# its parameters are compared after Adam's first step, lr * sign(g), so
+# only where no gradient component lies within rounding of zero, which
+# holds at this size.  One more step at the trainer's default width
+# compares the loss and the dp-averaged gradients (no sign step).
+MESH_NN = dict(steps=3, batch=4, h=16, w=64, features=(8, 8), seed=5,
+               lr=3e-3)
+MESH_NN_FULL = dict(batch=8, h=64, w=256, features=(24, 24), seed=5,
+                    lr=3e-3)
+NN_LOSS_RTOL, NN_PARAM_ATOL = 1e-4, 1e-5
+NN_GRAD_RTOL = 1e-4    # of each gradient tensor's largest component
+DEMOD_TOL = 1e-3       # of the tap's peak-to-peak (the port's demod budget)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _comb_frames(np):
+    """Smooth-ish frames with a moving feature and burst levels that vary
+    from frame to frame, so the AGC carry matters."""
+    rng = np.random.default_rng(4)
+    base = rng.integers(12000, 40000, (525, 910)).astype(np.uint16)
+    frames = np.stack([base] * MESH_COMB_FRAMES).astype(np.int32)
+    for k in range(MESH_COMB_FRAMES):
+        frames[k, 100:200, 100 + 8 * k:200 + 8 * k] += 4000
+    frames[:, :, 1] = ((6 + 10 * (np.arange(MESH_COMB_FRAMES)[:, None] % 4))
+                       * 358.4).astype(np.int32)
+    return frames
+
+
+def _nn_first_step(torch, NC, dev, mesh, size):
+    """The gradients (dp-averaged with a mesh) and the loss of one train
+    step at `size` from the seeded weights and batch."""
+    gen = torch.Generator(device=dev).manual_seed(size['seed'])
+    model = NC.NNComb(size['features']).to(dev)
+    model.reset_parameters(gen)
+    opt = NC.make_optimizer(model, size['lr'])
+    inp, clp_t, *_ = NC.synth_batch(gen, size['batch'], size['h'],
+                                    size['w'])
+    loss = NC.train_step(model, opt, inp, clp_t, mesh)
+    return ({k: p.grad.cpu().numpy() for k, p in model.named_parameters()},
+            float(loss))
+
+
+def mesh_rank(argv):
+    """One rank of phase 22: python3 chip_smoke.py --mesh-rank RANK WORLD
+    PORT BACKEND DIR.  Writes DIR/rank<RANK>.npz and prints one
+    MESH_RESULT line."""
+    import datetime
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    rank, world, port, backend, d = (int(argv[0]), int(argv[1]),
+                                     int(argv[2]), argv[3], argv[4])
+    sys.path.insert(0, ROOT)
+    from ld_decode_tpu_torch.comb import comb_ntsc as CN
+    from ld_decode_tpu_torch.models import nn_comb as NC
+    from ld_decode_tpu_torch.ops import demod as D
+    from ld_decode_tpu_torch.ops import filters as F
+    from ld_decode_tpu_torch.parallel import mesh as M
+    from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    from ld_decode_tpu_torch.tbc import fused as FU
+    from ld_decode_tpu_torch.tbc import sync as S
+    from ld_decode_tpu_torch.utils.params import DecoderConfig
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f'tcp://127.0.0.1:{port}',
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    with open(os.path.join(d, 'spec.json')) as f:
+        spec = json.load(f)
+    mesh = M.make_mesh(device='cuda')
+    dev = mesh.device
+    info = dict(rank=rank, world=world, backend=mesh.backend,
+                device=str(dev), staged=mesh.staged, dp=mesh.dp, sp=mesh.sp)
+    res = {}
+
+    def timed(fn, *args, reps=MESH_REPS):
+        """fn(*args) `reps` times (warmed up by the caller); its last
+        result and the wall ms a call."""
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            r = fn(*args)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) / reps * 1e3
+
+    for system, p in spec['pipeline'].items():
+        cfg = DecoderConfig(system=system, freq_mhz=40.0)
+        bank = F.make_demod_bank(cfg, np.complex64, device=dev)
+        n_audio1 = p['nblocks'] * bank.a_stage1_keep if bank.has_audio else 0
+        cap = torch.from_numpy(np.load(os.path.join(
+            d, f'cap_{system}.npy')).astype(np.float32)).to(dev)
+        args = (cap, p['start'], 0.0, 1.0)
+        fn = M.build_pipeline_batch_sharded(cfg, bank, mesh, p['nblocks'],
+                                            n_audio1, p['batch'], p['pitch'])
+        fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        CR.resample_lines_batch.launches = 0
+        CR.resample_lines_batch.window_launches = 0
+        (out, ns, no), ms = timed(fn, *args)
+        window = CR.resample_lines_batch.window_launches
+        info[system] = dict(ms=ms, k1=CR.resample_lines_batch.launches - window,
+                            k1_window=window, next=[int(ns), float(no)],
+                            peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        res.update({f'{system}_{k}': v.cpu().numpy() for k, v in out.items()})
+        if world == 1:
+            single = (cap, p['start'], 0.0, 1.0, bank, cfg, p['nblocks'],
+                      n_audio1, p['batch'], p['pitch'])
+            FU.field_pipeline_batch(*single)
+            (ref, rns, rno), info[system]['single_ms'] = timed(
+                FU.field_pipeline_batch, *single)
+            info[system]['single_next'] = [int(rns), float(rno)]
+            res.update({f'{system}_ref_{k}': v.cpu().numpy()
+                        for k, v in ref.items()})
+        del cap, out
+
+    # sharded demod at the production blocklen, dp 1 x sp (world)
+    dmesh = M.make_mesh(dp=1, device='cuda')
+    cfg = DecoderConfig(system='NTSC', freq_mhz=40.0)
+    bank = F.make_demod_bank(cfg, np.complex64, device=dev)
+    streams = torch.from_numpy(np.load(os.path.join(d, 'streams.npy'))).to(dev)
+    nb, keep = MESH_DEMOD_NBLOCKS, cfg.block_keep
+    cols = nb // dmesh.sp * keep
+    lo = dmesh.sp_index * cols
+    step = M.build_sharded_demod(cfg, bank, dmesh, nb, streams.shape[0])
+    demod, pidx, _pval = step(streams[:, lo:lo + cols].contiguous(), 1.0)
+    video, _ = D.demod_blocks(streams, bank, cfg, nb, 1.0)
+    ref = video['demod'][:, lo:lo + cols]
+    n = cols - (keep if dmesh.sp_index == dmesh.sp - 1 else 0)
+    window = max(int(cfg.linelen * 0.4), 2)
+    ridx, _ = S.find_sync_peaks(video['demod_sync'], window)
+    lim = (nb - 1) * keep - window
+    sets = [[set(int(i) for i in row if 0 <= i < lim) for row in x.cpu()]
+            for x in (pidx, ridx)]
+    info['demod'] = dict(
+        rel_err=float((demod[:, :n] - ref[:, :n]).abs().max()
+                      / (ref.max() - ref.min())),
+        peaks=sum(len(s) for s in sets[1]),
+        peak_mismatch=sum(len(a ^ b) for a, b in zip(*sets)))
+
+    # the 3D comb over 16 frames, sharded over the flat axis
+    frames = torch.from_numpy(np.load(os.path.join(d, 'frames.npy'))).to(dev)
+    ccfg = CN.CombConfig(dim=3, opticalflow=False)
+    f_l = MESH_COMB_FRAMES // mesh.size
+    comb = M.build_sharded_comb3d(ccfg, mesh, MESH_COMB_FRAMES)
+    rgb, info['comb_ms'] = timed(comb, frames[rank * f_l:(rank + 1) * f_l],
+                                 reps=1)
+    res['comb'] = rgb.cpu().numpy().astype(np.uint16)
+    if world == 1:
+        ab, seq = -1.0, []
+        for k in range(MESH_COMB_FRAMES):
+            o, ab, _ = CN.comb_frame(frames[k],
+                                     frames[(k + 1) % MESH_COMB_FRAMES],
+                                     frames[k - 1], ab, ccfg)
+            seq.append(o.cpu().numpy().astype(np.uint16))
+        res['comb_ref'] = np.stack(seq)
+
+    # three data-parallel NN train steps (world 1: mesh=None)
+    nn_mesh = mesh if world > 1 else None
+    for tag, size in (('', MESH_NN), ('full_', MESH_NN_FULL)):
+        grads, info[f'{tag}step_loss'] = _nn_first_step(torch, NC, dev,
+                                                        nn_mesh, size)
+        res.update({f'{tag}grad_{k}': g for k, g in grads.items()})
+    model, loss = NC.train_nn_comb(
+        torch.Generator(device=dev).manual_seed(MESH_NN['seed']),
+        steps=MESH_NN['steps'], batch=MESH_NN['batch'], h=MESH_NN['h'],
+        w=MESH_NN['w'], lr=MESH_NN['lr'], features=MESH_NN['features'],
+        device=dev, mesh=nn_mesh)
+    res.update({f'nn_{k}': v.cpu().numpy()
+                for k, v in model.state_dict().items()})
+    info['nn_loss'] = loss
+
+    np.savez(os.path.join(d, f'rank{rank}.npz'), **res)
+    dist.barrier()
+    dist.destroy_process_group()
+    print('MESH_RESULT ' + json.dumps(info), flush=True)
+
+
+def _run_world(np, world: int, backend: str, d: str):
+    """Start the ranks of one world; wait for all of them.  A rank that
+    fails or outlives MESH_TIMEOUT_S fails the phase (the rest are
+    killed)."""
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        log = open(os.path.join(d, f'rank{r}.log'), 'w')
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--mesh-rank',
+             str(r), str(world), str(port), backend, d],
+            stdout=log, stderr=subprocess.STDOUT, cwd=ROOT), log))
+    deadline = time.perf_counter() + MESH_TIMEOUT_S
+    for p, _ in procs:
+        try:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            break
+    infos, bad = [], []
+    for r, (p, log) in enumerate(procs):
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+        with open(os.path.join(d, f'rank{r}.log')) as f:
+            text = f.read()
+        lines = [l for l in text.splitlines() if l.startswith('MESH_RESULT ')]
+        if p.returncode != 0 or not lines:
+            bad.append(f'rank {r} of {world} ({backend}) rc {p.returncode}:'
+                       f'\n{text[-3000:]}')
+        else:
+            infos.append(json.loads(lines[-1][len('MESH_RESULT '):]))
+    if bad:
+        fail('\n'.join(bad))
+    return infos, [dict(np.load(os.path.join(d, f'rank{r}.npz')))
+                   for r in range(world)]
+
+
+def _equal_but_audio(np, got, want, what: str):
+    """Bit for bit, except the audio: JAX's allowance, values may move by
+    1 LSB on at most AUDIO_TICKS of them.  (A field's stage-2 audio does
+    not depend on the number of fields in the call: audio/stage2.py keeps
+    cuFFT's irfft to calls of at most IRFFT_ROWS rows.)"""
+    bad = []
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape:
+            bad.append(f'{k} shape {g.shape} vs {w.shape}')
+            continue
+        dd = np.abs(g.astype(np.float64) - w.astype(np.float64))
+        if k == 'audio':
+            ticks = int((dd != 0).sum())
+            print(f'{what}: audio differs by up to {dd.max():.0f} LSB on '
+                  f'{ticks} of {dd.size} values (budget 1 LSB on '
+                  f'{AUDIO_TICKS})')
+            if dd.max() > 1 or ticks > AUDIO_TICKS:
+                bad.append('audio')
+        elif not np.array_equal(g, w):
+            bad.append(f'{k} (max|d| {dd.max():.3g} on {int((dd != 0).sum())}'
+                       f' of {dd.size})')
+    if bad:
+        fail(f'{what}: ' + '; '.join(bad))
+
+
+def mesh_phase(torch, np, cfg, cap, pcfg, pcap, d: str):
+    """The sharded decode over torch.distributed: worlds of 1 rank (NCCL)
+    and 2 ranks (gloo, host-staged collectives) on the one card, each rank
+    a subprocess; the sharded NTSC and PAL batch pipelines at full width
+    against the single-rank batch, the sharded demod at the production
+    blocklen, the sharded 3D comb, three data-parallel NN steps."""
+    phase('22 mesh: the sharded decode over torch.distributed')
+    from ld_decode_tpu_torch.ops import filters as F
+    from ld_decode_tpu_torch.parallel.mesh import default_backend
+    from ld_decode_tpu_torch.tbc import framer as FR
+    spec = {'pipeline': {}}
+    for system, c, cf in (('NTSC', cap, cfg), ('PAL', pcap, pcfg)):
+        p = MESH_PIPELINES[system]
+        fr = FR.Framer(cf, F.make_demod_bank(cf, np.complex64,
+                                             device='cuda'),
+                       capture=c, batch=1, nblocks=p['nblocks'],
+                       device='cuda')
+        f0, rs0, _ = fr.readfield(None, p['start'])
+        np.save(os.path.join(d, f'cap_{system}.npy'),
+                c[:int(p['frames'] * cf.freq_hz / cf.sys.fps)])
+        spec['pipeline'][system] = dict(
+            nblocks=p['nblocks'], batch=p['batch'],
+            start=int(f0.readsample if f0.readsample >= 0 else rs0),
+            pitch=int(round(cf.freq_hz / cf.sys.fps / 2)))
+    total = MESH_DEMOD_NBLOCKS * cfg.block_keep + cfg.blocklen \
+        - cfg.block_keep
+    np.save(os.path.join(d, 'streams.npy'), np.stack([
+        cap[33046 + f * 700000:33046 + f * 700000 + total]
+        for f in range(MESH_DEMOD_FIELDS)]).astype(np.float32))
+    np.save(os.path.join(d, 'frames.npy'), _comb_frames(np))
+    with open(os.path.join(d, 'spec.json'), 'w') as f:
+        json.dump(spec, f)
+
+    worlds = {}
+    for world in MESH_WORLDS:
+        backend = default_backend(world)
+        t0 = time.perf_counter()
+        worlds[world] = _run_world(np, world, backend, d)
+        print(f'world {world} ({backend}): {time.perf_counter() - t0:.1f} s, '
+              f'ranks on ' + ', '.join(
+                  f'{i["device"]} ({i["backend"]}, dp {i["dp"]} sp {i["sp"]}'
+                  f'{", host-staged" if i["staged"] else ""})'
+                  for i in worlds[world][0]))
+    (one,), (ref,) = worlds[1]
+    infos2, ranks2 = worlds[2]
+
+    launches = {}
+    for system, p in MESH_PIPELINES.items():
+        keys = [k[len(system) + 5:] for k in ref
+                if k.startswith(system + '_ref_')]
+        want = {k: ref[f'{system}_ref_{k}'] for k in keys}
+        _equal_but_audio(np, {k: ref[f'{system}_{k}'] for k in keys}, want,
+                         f'{system} 1-rank sharded vs single-rank batch')
+        got = {k: np.concatenate([r[f'{system}_{k}'] for r in ranks2])
+               for k in keys}
+        _equal_but_audio(np, got, want,
+                         f'{system} 2-rank sharded vs single-rank batch')
+        if not want['meta_i'][:, 0].all():
+            fail(f'{system}: fields not valid {want["meta_i"][:, 0]}')
+        single = one[system]['single_next']
+        for i in [one] + infos2:
+            if i[system]['next'] != single:
+                fail(f'{system} rank {i["rank"]} of {i["world"]}: chained '
+                     f'scalars {i[system]["next"]} vs {single}')
+        expect = (p['k1'] * MESH_REPS, p['k1_window'] * MESH_REPS)
+        for i in [one] + infos2:
+            got = (i[system]['k1'], i[system]['k1_window'])
+            if got != expect:
+                fail(f'{system} rank {i["rank"]} of {i["world"]}: K1 '
+                     f'launched {got} times (picture, burst window), '
+                     f'expected {expect}')
+        launches[system] = {w: sum(i[system]['k1'] for i in infos)
+                            for w, (infos, _) in worlds.items()}
+        if p['k1_window']:
+            launches[system + ' burst window'] = {
+                w: sum(i[system]['k1_window'] for i in infos)
+                for w, (infos, _) in worlds.items()}
+        print(f'{system} batch {p["batch"]} (nblocks {p["nblocks"]}), one '
+              f'call: single-rank field_pipeline_batch '
+              f'{one[system]["single_ms"]:.2f} ms; sharded, 1 rank '
+              f'({one["backend"]}) {one[system]["ms"]:.2f} ms; sharded, 2 '
+              f'ranks on the one card ({infos2[0]["backend"]}), per rank: '
+              + ', '.join(f'{i[system]["ms"]:.2f} ms' for i in infos2)
+              + ' (one-card overhead, not scaling); peak device memory '
+              f'per rank {one[system]["peak_mib"]:.1f} MiB (1 rank), '
+              + ', '.join(f'{i[system]["peak_mib"]:.1f}' for i in infos2)
+              + ' MiB (2 ranks); K1 launches in ' f'{MESH_REPS} calls '
+              '(picture + burst window): '
+              + ', '.join(f'rank {i["rank"]} of {i["world"]} '
+                          f'{i[system]["k1"]} + {i[system]["k1_window"]}'
+                          for i in [one] + infos2)
+              + '; outputs equal to the single-rank batch (audio within '
+              'JAX\'s allowance), chained scalars exact')
+
+    for i in [one] + infos2:
+        dm = i['demod']
+        print(f'demod rank {i["rank"]} of {i["world"]} (dp 1 x sp '
+              f'{i["world"]}, blocklen {cfg.blocklen}): max|d| '
+              f'{dm["rel_err"]:.2e} of the tap\'s peak-to-peak against the '
+              f'unsharded demod; {dm["peaks"]} sync peaks, '
+              f'{dm["peak_mismatch"]} differ')
+        if dm['rel_err'] > DEMOD_TOL or dm['peak_mismatch'] or not dm['peaks']:
+            fail('sharded demod outside its budget')
+
+    comb = np.concatenate([r['comb'] for r in ranks2])
+    if not np.array_equal(comb, ref['comb_ref']) \
+            or not np.array_equal(ref['comb'], ref['comb_ref']):
+        fail('the sharded 3D comb differs from the sequential comb_frame '
+             'chain')
+    print(f'comb3d: {MESH_COMB_FRAMES} frames of 525 x 910 equal to the '
+          f'sequential chain; {one["comb_ms"]:.1f} ms (1 rank), '
+          + ', '.join(f'{i["comb_ms"]:.1f}' for i in infos2)
+          + ' ms per rank (2 ranks)')
+
+    gkeys = [k for k in ref if k.startswith('grad_')]
+    gnoise = dparam = 0.0
+    for r in ranks2:
+        for k in gkeys:
+            noise = float(np.abs(r[k] - ref[k]).max())
+            gnoise = max(gnoise, noise)
+            if float(np.abs(ref[k]).min()) <= 10 * noise:
+                fail(f'NN {k}: a first-step gradient component lies within '
+                     f'10x the runs\' difference ({noise:.2e}) of zero')
+        for k in [k for k in ref if k.startswith('nn_')]:
+            dparam = max(dparam, float(np.abs(r[k] - ref[k]).max()))
+    dloss = max(abs(i['nn_loss'] - one['nn_loss']) / abs(one['nn_loss'])
+                for i in infos2)
+    print(f'NN: {MESH_NN["steps"]} data-parallel steps (dp 2) vs mesh=None: '
+          f'loss {one["nn_loss"]:.6f}, relative difference {dloss:.2e}; '
+          f'first-step gradients max|d| {gnoise:.2e}; parameters max|d| '
+          f'{dparam:.2e} (budget {NN_PARAM_ATOL})')
+    if dparam > NN_PARAM_ATOL:
+        fail('NN data-parallel parameters differ')
+    if dloss > NN_LOSS_RTOL:
+        fail('NN data-parallel loss differs')
+
+    fkeys = [k for k in ref if k.startswith('full_grad_')]
+    grel = max(float(np.abs(r[k] - ref[k]).max() / np.abs(ref[k]).max())
+               for r in ranks2 for k in fkeys)
+    floss = max(abs(i['full_step_loss'] - one['full_step_loss'])
+                / abs(one['full_step_loss']) for i in infos2)
+    print(f'NN at the trainer\'s default width (features '
+          f'{MESH_NN_FULL["features"]}, batch {MESH_NN_FULL["batch"]}, '
+          f'{MESH_NN_FULL["h"]} x {MESH_NN_FULL["w"]}), one data-parallel '
+          f'step (dp 2) vs mesh=None: loss {one["full_step_loss"]:.6f}, '
+          f'relative difference {floss:.2e} (budget {NN_LOSS_RTOL}); '
+          f'dp-averaged gradients max|d| {grel:.2e} of each tensor\'s '
+          f'largest component (budget {NN_GRAD_RTOL})')
+    if floss > NN_LOSS_RTOL or grel > NN_GRAD_RTOL:
+        fail('NN data-parallel step at the default width differs')
+    return launches
+
+
 def main():
+    if sys.argv[1:2] == ['--mesh-rank']:
+        return mesh_rank(sys.argv[2:])
     try:
         import numpy as np
         import torch
@@ -1731,12 +2260,15 @@ def run(torch, np, work: str):
 
     seq_ntsc, base = seq_decode_phase(torch, np, cfg, cap, bank, work)
     seq_pal, _ = seq_decode_phase(torch, np, pcfg, pcap, pbank, work)
-    del cap, bank, pcap, pbank
+    del bank, pbank
     k2_stream = stream_comb_phase(torch, np, base)
     k3 = k3_phase(torch, np)
     two = two_step_phase(torch, np, ntsc_cli, pal_cli, _subdir(work, 'two'))
     nn_comb_phase(torch, np, ntsc_cli, _subdir(work, 'nn'))
     vhs_phase(torch, np)
+    loader_phase(torch, np, cfg, cap, _subdir(work, 'loader'))
+    sharded = mesh_phase(torch, np, cfg, cap, pcfg, pcap,
+                         _subdir(work, 'mesh'))
     if 'jax' in sys.modules:
         fail('jax was imported')
 
@@ -1748,17 +2280,37 @@ def run(torch, np, work: str):
           f'{pal_launches}, PAL chain {pal_k1}, NTSC seq decode {seq_ntsc}, '
           f'PAL seq decode {seq_pal}, ldview {two["k1_view"]}; K2: NTSC chain '
           f'{k2}, NTSC stream comb {k2_stream}, ldexport {two["k2"]}; K3: cx '
-          f'file {k3["launches"]}, ldexport {two["k3"]}')
+          f'file {k3["launches"]}, ldexport {two["k3"]}; K1 in the sharded '
+          f'decode: NTSC {sharded["NTSC"]} + burst window '
+          f'{sharded["NTSC burst window"]}, PAL {sharded["PAL"]} (ranks '
+          f'summed, by world size)')
+    # the sharded decode is this slice's path: its `launches` are the
+    # 2-rank world's, summed over the ranks
     k1_paths = {'ntsc seq decode': seq_ntsc, 'pal seq decode': seq_pal,
                 'ldview': two['k1_view'], 'pal decode': pal_launches,
                 'pal chain': pal_k1, 'ntsc decode': launches,
-                'ntsc chain': k1}
+                'ntsc chain': k1,
+                'sharded decode': {f'{s.lower()} {w} rank{"s" * (w > 1)}': n
+                                   for s, by in sharded.items()
+                                   for w, n in by.items()}}
     k1_common = dict(route='cuda',
                      source='ld_decode_tpu_torch/csrc/resample_lines.cu',
                      replaces='ld_decode_tpu/tbc/pallas_resample.py:205',
                      ms_method=MS_METHOD)
     k3_launches = k3.pop('launches')
     print(json.dumps({'kernels': [
+        dict(name='resample_lines_batch[ntsc shard]',
+             shape='ntsc shard picture (8, 263, 910)',
+             launches=sharded['NTSC'][2], **k1_common,
+             **kres['K1']['ntsc shard picture']),
+        dict(name='resample_lines_batch[ntsc shard burst]',
+             shape='ntsc shard burst window (8, 263, 48)',
+             launches=sharded['NTSC burst window'][2], **k1_common,
+             **kres['K1']['ntsc shard burst window']),
+        dict(name='resample_lines_batch[pal shard]',
+             shape='pal shard picture (8, 313, 1135)',
+             launches=sharded['PAL'][2], **k1_common,
+             **kres['K1']['pal shard picture']),
         dict(name='resample_lines_batch[ntsc seq]',
              shape='ntsc seq picture (1, 263, 910)', launches=seq_ntsc,
              launches_by_path=k1_paths, **k1_common,

@@ -17,12 +17,28 @@ import torch.nn.functional as F
 
 from ld_decode_tpu_torch.ops.filters import DemodBank
 
+# Rows of one inverse transform call.  On the H100 (CUDA 12.8) cuFFT takes
+# another kernel for an irfft of 64 rows or more, whose roundings differ
+# from those of smaller calls; up to 56 rows a row's result equals a
+# one-row call's (scripts/audio_batch_probe_torch.py).  Calls of at most
+# this many rows keep a field's audio independent of the number of fields
+# decoded together (the sharded batch decodes fewer fields a rank).
+IRFFT_ROWS = 32
+
 
 def _block_starts(n: int, blocklen: int, askip: int, fdiv2: int):
     sjump = blocklen - askip * fdiv2
     starts = [0] + list(range(sjump, n - sjump, sjump))
     starts.append(n - blocklen - 1)
     return starts, sjump
+
+
+def _irfft_rows(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """irfft over the last axis, at most IRFFT_ROWS rows a call."""
+    flat = spec.reshape(-1, spec.shape[-1])
+    parts = [torch.fft.irfft(c, n) for c in flat.split(IRFFT_ROWS)]
+    out = parts[0] if len(parts) == 1 else torch.cat(parts)
+    return out.reshape(*spec.shape[:-1], n)
 
 
 def audio_stage2(left: torch.Tensor, right: torch.Tensor, bank: DemodBank,
@@ -50,7 +66,7 @@ def audio_stage2(left: torch.Tensor, right: torch.Tensor, bank: DemodBank,
         blocks = chan.index_select(-1, idx.reshape(-1)).reshape(
             *lead, nb, blocklen)
         spec = torch.fft.rfft(blocks)[..., :nbins] * lpf
-        out = torch.fft.irfft(spec, outlen_blk) / fdiv2
+        out = _irfft_rows(spec, outlen_blk) / fdiv2
         parts = [out[..., 0, :]] + [out[..., bi, askip:]
                                     for bi in range(1, nb - 1)]
         head = torch.cat(parts, dim=-1)[..., :n_out]

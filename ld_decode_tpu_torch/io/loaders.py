@@ -10,17 +10,49 @@ Implements the loader API contract of the reference
   * .r16  — int16 LE (reference lddutils.py:146-147)
   * .raw/.u8 — uint8 cxADC (reference lddutils.py:143-144)
 
-The PyTorch port's copy of ld_decode_tpu/io/loaders.py (the port imports
-nothing of the JAX package): the vectorized numpy unpack only, without the
-JAX package's optional C++ fast path.
+A C++ fast path for the .lds bit-unpack lives in csrc/unpack.cpp (ctypes,
+io/native_unpack.py); these numpy versions are the reference-parity
+fallback, taken when no g++ can build it.  The PyTorch port's copy of
+ld_decode_tpu/io/loaders.py (the port imports nothing of the JAX package).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
 import numpy as np
+
+_native = None
+# .lds unpacks done by each route and the seconds they took, for callers
+# that must know which route ran and what it cost
+unpack_calls = {'native': 0, 'numpy': 0}
+unpack_seconds = {'native': 0.0, 'numpy': 0.0}
+
+
+def _try_native():
+    global _native
+    if _native is None:
+        try:
+            from ld_decode_tpu_torch.io import native_unpack
+            _native = native_unpack if native_unpack.available() else False
+        except Exception:
+            _native = False
+    return _native
+
+
+def unpack_route() -> str:
+    """'native' or 'numpy': the route the next .lds unpack takes."""
+    return 'native' if _try_native() else 'numpy'
+
+
+def set_native(enabled: bool):
+    """enabled=False makes the .lds unpack take the numpy route;
+    enabled=True gives the native route back where it builds."""
+    global _native
+    _native = None if enabled else False
+
 
 def load_u8(infile, sample: int, readlen: int) -> Optional[np.ndarray]:
     infile.seek(sample)
@@ -41,14 +73,23 @@ def load_s16(infile, sample: int, readlen: int) -> Optional[np.ndarray]:
 def unpack_data_4_40(raw: np.ndarray, readlen: int,
                      offset: int) -> np.ndarray:
     """5 bytes -> 4x 10-bit samples (bit layout per lddutils.py:178-191)."""
-    groups = len(raw) // 5
-    b = raw[:groups * 5].reshape(groups, 5).astype(np.uint16)
-    out = np.empty((groups, 4), dtype=np.uint16)
-    out[:, 0] = (b[:, 0] << 2) | (b[:, 1] >> 6)
-    out[:, 1] = ((b[:, 1] & 0x3f) << 4) | (b[:, 2] >> 4)
-    out[:, 2] = ((b[:, 2] & 0x0f) << 6) | (b[:, 3] >> 2)
-    out[:, 3] = ((b[:, 3] & 0x03) << 8) | b[:, 4]
-    return out.reshape(-1)[offset:offset + readlen]
+    nat = _try_native()
+    t0 = time.perf_counter()
+    route = 'native' if nat else 'numpy'
+    if nat:
+        out = nat.unpack_4_40(raw, readlen, offset)
+    else:
+        groups = len(raw) // 5
+        b = raw[:groups * 5].reshape(groups, 5).astype(np.uint16)
+        out = np.empty((groups, 4), dtype=np.uint16)
+        out[:, 0] = (b[:, 0] << 2) | (b[:, 1] >> 6)
+        out[:, 1] = ((b[:, 1] & 0x3f) << 4) | (b[:, 2] >> 4)
+        out[:, 2] = ((b[:, 2] & 0x0f) << 6) | (b[:, 3] >> 2)
+        out[:, 3] = ((b[:, 3] & 0x03) << 8) | b[:, 4]
+        out = out.reshape(-1)[offset:offset + readlen]
+    unpack_calls[route] += 1
+    unpack_seconds[route] += time.perf_counter() - t0
+    return out
 
 
 def load_packed_4_40(infile, sample: int, readlen: int) -> Optional[np.ndarray]:

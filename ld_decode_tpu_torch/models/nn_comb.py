@@ -33,8 +33,9 @@ tests/test_torch_nn_comb.py:
   * the training pairs are made a window of frames at a time on the
     frames' device, so a 128-frame run never holds all its pairs there;
   * the train step (`train_step`) is torch.optim.Adam with optax.adam's
-    defaults; data-parallel training over a device mesh (the JAX
-    package's `mesh=`) is not ported (ROADMAP.md Queue 1, item C1);
+    defaults; data-parallel training over a mesh of ranks (the JAX
+    package's `mesh=`, parallel/mesh.py) draws the whole batch on every
+    rank, trains each on its 'dp' rows and averages the gradients;
   * the AGC of `comb_frame_nn` is the port's host EMA (`burst_levels`),
     as in comb_ntsc.comb_frame.
 
@@ -325,13 +326,33 @@ def _file_batch(generator: torch.Generator, data, batch: int, h: int,
 # training
 
 def train_step(model: NNComb, opt: torch.optim.Optimizer,
-               inp: torch.Tensor, clp_t: torch.Tensor) -> torch.Tensor:
+               inp: torch.Tensor, clp_t: torch.Tensor,
+               mesh=None) -> torch.Tensor:
     """One step on a batch: loss mean((pred - clp)^2) / IRESCALE^2 (IRE^2),
     its gradient, and the optimiser's update.  Returns the loss (a 0-d
-    tensor, before the update)."""
+    tensor, before the update).
+
+    With `mesh` (parallel/mesh.py) every rank passes the whole batch and
+    trains on its 'dp' rows; the gradients and the loss are averaged over
+    'dp' (equal slices, so the mean is the whole batch's), and every rank
+    takes the same Adam step."""
+    if mesh is not None:
+        lb = inp.shape[0] // mesh.dp
+        if lb * mesh.dp != inp.shape[0]:
+            raise ValueError(f'batch {inp.shape[0]} does not split over '
+                             f'dp={mesh.dp}')
+        rows = slice(mesh.dp_index * lb, (mesh.dp_index + 1) * lb)
+        inp, clp_t = inp[rows], clp_t[rows]
     opt.zero_grad(set_to_none=True)
     loss = torch.mean((model(inp) - clp_t) ** 2) / (IRESCALE ** 2)
     loss.backward()
+    if mesh is not None:
+        grads = [p.grad for p in model.parameters()]
+        flat = mesh.all_reduce_mean(torch.cat([g.reshape(-1) for g in grads]),
+                                    mesh.dp_group)
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
+        loss = mesh.all_reduce_mean(loss.detach(), mesh.dp_group)
     opt.step()
     return loss.detach()
 
@@ -346,7 +367,7 @@ def make_optimizer(model: NNComb, lr: float) -> torch.optim.Optimizer:
 def train_nn_comb(generator: torch.Generator = None, steps: int = 250,
                   batch: int = 8, h: int = 64, w: int = 256,
                   lr: float = 3e-3, features: Tuple[int, ...] = (24, 24),
-                  data=None, device=DEFAULT_DEVICE):
+                  data=None, device=DEFAULT_DEVICE, mesh=None):
     """Train the chroma separator on `device`; returns (model,
     final_loss).
 
@@ -354,10 +375,12 @@ def train_nn_comb(generator: torch.Generator = None, steps: int = 250,
     `data=(inputs, clp)` (float32 arrays, e.g. from a write_training_file
     .npz) to train on real-capture pairs instead, the reference's -t
     training path (comb-ntsc.cxx:1057-1061).  `generator` (default: seed 0
-    on `device`) draws the weights and every batch.  Data-parallel
-    training over several devices (the JAX package's `mesh=`) is not
-    ported: ROADMAP.md Queue 1, item C1."""
-    dev = resolve_device(device)
+    on `device`) draws the weights and every batch.  With `mesh`
+    (parallel/mesh.py) the train step runs data-parallel over its 'dp'
+    axis on the mesh's device: every rank draws the same weights and
+    batches from its identically seeded generator, and the returned loss
+    is the mean over 'dp'."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     model = NNComb(features).to(dev)
@@ -372,7 +395,7 @@ def train_nn_comb(generator: torch.Generator = None, steps: int = 250,
             inp, clp_t = _file_batch(generator, data, batch, h, w)
         else:
             inp, clp_t, *_ = synth_batch(generator, batch, h, w)
-        loss = train_step(model, opt, inp, clp_t)
+        loss = train_step(model, opt, inp, clp_t, mesh)
     return model, float(loss)
 
 

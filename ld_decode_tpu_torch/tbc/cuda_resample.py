@@ -17,7 +17,9 @@ result is bit-equal to the plain version.
 
 Dispatch follows the tensor's device: a CPU tensor takes the plain PyTorch
 version (`resample_lines_batch_plain`); a CUDA tensor launches the kernel
-or raises.  Each launch adds one to ``resample_lines_batch.launches``.
+or raises.  Each launch adds one to ``resample_lines_batch.launches``; a
+launch restricted to a column window (ncols < outwidth, the burst window)
+also adds one to ``resample_lines_batch.window_launches``.
 """
 
 from __future__ import annotations
@@ -145,7 +147,9 @@ def resample_lines_batch(data: torch.Tensor, lli: torch.Tensor,
         raise RuntimeError(f'resample_lines kernel launch failed: '
                            f'cudaError {rc}')
     resample_lines_batch.launches += 1
+    resample_lines_batch.window_launches += int(ncols < outwidth)
     return out
 
 
 resample_lines_batch.launches = 0
+resample_lines_batch.window_launches = 0

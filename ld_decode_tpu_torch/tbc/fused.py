@@ -498,16 +498,18 @@ def _audio_offset_chain(offset0: torch.Tensor, lcs: torch.Tensor,
     return torch.stack(offs), off
 
 
-def pipeline_starts(start0, nbatch: int, field_pitch: int, valid_len: int,
-                    cfg: DecoderConfig, nblocks: int,
+def pipeline_starts(start0, batch_index: int, nbatch: int, field_pitch: int,
+                    valid_len: int, cfg: DecoderConfig, nblocks: int,
                     device=None) -> torch.Tensor:
-    """Clamped speculative window starts of the `nbatch` fields of a batch;
-    windows clamp at the real end of the capture (`valid_len`), so EOF
-    repeats a start."""
+    """Clamped speculative window starts of fields [batch_index,
+    batch_index + nbatch) of a batch chain (a shard of a sharded batch
+    starts at its first field's index); windows clamp at the real end of
+    the capture (`valid_len`), so EOF repeats a start."""
     n_stream = D.stream_len(cfg, nblocks)
     smax = int(valid_len) - (n_stream - cfg.blockcut)
     s0 = _scalar(start0, torch.int32, device)
-    ar = torch.arange(nbatch, dtype=torch.int32, device=s0.device)
+    ar = torch.arange(batch_index, batch_index + nbatch, dtype=torch.int32,
+                      device=s0.device)
     return (s0 + ar * field_pitch).clamp(cfg.blockcut, smax)
 
 
@@ -572,26 +574,39 @@ def field_pipeline_batch(capture: torch.Tensor, start0, audio_offset0,
                          nblocks: int, n_audio1: int, batch: int,
                          field_pitch: int, colorlevel: float = 1.45,
                          colorphase: float = 91.5,
-                         valid_len: Optional[int] = None):
+                         valid_len: Optional[int] = None,
+                         batch_index: int = 0, gather_carry=None):
     """The whole speculative field batch in one call with no host read.
 
     capture: 1-D float32 resident capture (16-bit samples).  start0 /
     audio_offset0 / mtf_level may be device scalars; the chained
     (next_start0, next_offset0) come back as device scalars, so
     consecutive batches chain on the device.  Returns (outputs dict of
-    (batch, ...) tensors, next_start0, next_offset0)."""
+    (batch, ...) tensors, next_start0, next_offset0).
+
+    A shard of a larger batch (parallel/mesh.py) decodes fields
+    [batch_index, batch_index + batch) of it and passes `gather_carry`,
+    which maps its (3, batch) int32 carries (line counts, next-field
+    offsets, window starts) to the whole batch's (3, total); the audio
+    offset chain is then replayed over the whole batch, so the chained
+    scalars are the whole batch's."""
     require_tbc(cfg)
     if valid_len is None:
         valid_len = capture.shape[0]
     dev = capture.device
-    starts = pipeline_starts(start0, batch, field_pitch, valid_len, cfg,
-                             nblocks, device=dev)
+    starts = pipeline_starts(start0, batch_index, batch, field_pitch,
+                             valid_len, cfg, nblocks, device=dev)
     (video, audio1, lld, lc, valid, istop, nfo, nv,
      vs_count) = pipeline_analyze(capture, starts, mtf_level, bank, cfg,
                                   nblocks)
-    offs_used, next_offset0 = _audio_offset_chain(
-        _scalar(audio_offset0, torch.float32, dev), lc, cfg)
-    next_start0 = starts[-1] + nfo[-1]
+    lc_all, nfo_all, starts_all = lc, nfo, starts
+    if gather_carry is not None:
+        lc_all, nfo_all, starts_all = gather_carry(
+            torch.stack([lc, nfo.to(torch.int32), starts]))
+    offs_all, next_offset0 = _audio_offset_chain(
+        _scalar(audio_offset0, torch.float32, dev), lc_all, cfg)
+    offs_used = offs_all[batch_index:batch_index + batch]
+    next_start0 = starts_all[-1] + nfo_all[-1]
     out = pipeline_finish(video, audio1, lld, lc, valid, istop, nfo, nv,
                           vs_count, starts, offs_used, bank, cfg, n_audio1,
                           colorlevel, colorphase)

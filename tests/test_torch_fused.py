@@ -222,6 +222,47 @@ def test_audio_stage2_matches_jax(ref):
         assert np.abs(g - w).max() <= 1e-4 * np.ptp(w)
 
 
+def _stage2_fields(device):
+    """Stage-2 audio of 16 fields (64 transform rows, over IRFFT_ROWS) in
+    one call, and in two calls of 8 fields."""
+    tcfg = TConfig(system='NTSC', freq_mhz=40.0)
+    bank = TF.make_demod_bank(tcfg, np.complex64, device=device)
+    n = NBLOCKS * bank.a_stage1_keep
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((2, 16, n), dtype=np.float32)
+                         * 1e5).to(device)
+    whole = audio_stage2(x[0], x[1], bank, n)
+    halves = [audio_stage2(x[0, h], x[1, h], bank, n)
+              for h in (slice(0, 8), slice(8, 16))]
+    return x, bank, n, whole, [torch.cat(c) for c in zip(*halves)]
+
+
+def test_audio_stage2_rows_split(monkeypatch):
+    """The irfft split into calls of IRFFT_ROWS rows reassembles exactly:
+    on the CPU (whose FFT does not depend on the rows of a call) equal to
+    one call over all the rows, and a field's audio the same in a call of
+    16 fields as in one of 8."""
+    from ld_decode_tpu_torch.audio import stage2 as S2
+    x, bank, n, whole, halves = _stage2_fields('cpu')
+    assert x.shape[1] * 4 > S2.IRFFT_ROWS
+    monkeypatch.setattr(S2, 'IRFFT_ROWS', 1 << 30)
+    one_call = audio_stage2(x[0], x[1], bank, n)
+    for w, h, o in zip(whole, halves, one_call):
+        assert torch.equal(w, h)
+        assert torch.equal(w, o)
+
+
+@pytest.mark.cuda
+def test_cuda_audio_stage2_independent_of_fields():
+    """On a card: a field's stage-2 audio is the same whether it is
+    decoded with 15 other fields or with 7 (the sharded batch's rank)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    _x, _bank, _n, whole, halves = _stage2_fields('cuda')
+    for w, h in zip(whole, halves):
+        assert torch.equal(w, h)
+
+
 def test_scale_u16_matches_jax(ref):
     cfg = ref['cfg']
     rng = np.random.default_rng(4)

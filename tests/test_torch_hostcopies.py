@@ -4,6 +4,7 @@ every output equal in memory."""
 
 import dataclasses
 import io
+import os
 import types
 
 import numpy as np
@@ -29,6 +30,7 @@ from ld_decode_tpu_torch.audio.downscale import downscale_audio as t_downscale
 from ld_decode_tpu_torch.comb.comb_ntsc import PulldownAssembler as TPulldown
 from ld_decode_tpu_torch.io import export_sink as TS
 from ld_decode_tpu_torch.io import loaders as TL
+from ld_decode_tpu_torch.io import native_unpack as TNU
 from ld_decode_tpu_torch.models import encode as TE
 from ld_decode_tpu_torch.tbc.despackle import despackle as t_despackle
 from ld_decode_tpu_torch.utils import fdls as TFD
@@ -81,6 +83,62 @@ def test_loaders_equal(ext):
         if a is not None:
             np.testing.assert_array_equal(a, b)
     assert TL.file_samples(tl, f) == JL.file_samples(jl, f)
+
+
+def test_native_unpack_source_is_a_copy():
+    """csrc/unpack.cpp is native/unpack.cpp byte for byte: the port builds
+    its own copy and shares no source with the JAX package."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, 'ld_decode_tpu_torch', 'csrc',
+                           'unpack.cpp'), 'rb') as f:
+        port = f.read()
+    with open(os.path.join(root, 'native', 'unpack.cpp'), 'rb') as f:
+        assert port == f.read()
+
+
+@pytest.mark.parametrize('ext', ['.lds', '.r30'])
+def test_native_unpack_equal(ext):
+    """The C++ unpack (built with g++ into build/) against the port's numpy
+    unpack and the JAX package's loaders, at every sample offset mod 4
+    (.lds) or 3 (.r30); the .lds loader takes the native route and says
+    so."""
+    assert TNU.available()
+    rng = np.random.default_rng(11)
+    s = rng.integers(0, 1024, 40003)
+    group = 4 if ext == '.lds' else 3
+    raw = (TL.pack_data_4_40(s) if ext == '.lds' else TL.pack_data_3_32(s))
+    if ext == '.lds':
+        np.testing.assert_array_equal(TNU.pack_4_40(s), raw)
+    f = io.BytesIO(raw.tobytes())
+    tl, jl = TL.loader_for_path('x' + ext), JL.loader_for_path('x' + ext)
+    for start in [k + 1000 * group for k in range(group)] + [39990]:
+        for n in (1, 4097, 12):
+            want = jl(f, start, n)
+            if want is None:
+                continue
+            off = start % group
+            if ext == '.lds':
+                block = raw[start // group * 5:]
+                native = TNU.unpack_4_40(block, n, off)
+                before = dict(TL.unpack_calls)
+                got = tl(f, start, n)
+                assert TL.unpack_route() == 'native'
+                assert TL.unpack_calls['native'] == before['native'] + 1
+                TL.set_native(False)
+                try:
+                    plain = tl(f, start, n)
+                    assert TL.unpack_route() == 'numpy'
+                    assert TL.unpack_calls['numpy'] == before['numpy'] + 1
+                finally:
+                    TL.set_native(True)
+            else:
+                native = TNU.unpack_3_32(raw[start // group:], n, off)
+                got = plain = tl(f, start, n)
+            np.testing.assert_array_equal(native, want)
+            np.testing.assert_array_equal(native, s[start:start + n])
+            for a in (got, plain):
+                assert a.dtype == want.dtype
+                np.testing.assert_array_equal(a, want)
 
 
 def test_philips_host_equal():

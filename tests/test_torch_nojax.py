@@ -45,7 +45,10 @@ def test_port_sources_import_no_jax():
             'ld_decode_tpu_torch/vbi/iec60857.py',
             'ld_decode_tpu_torch/utils/fdls.py',
             'ld_decode_tpu_torch/utils/filtertools.py',
-            'ld_decode_tpu_torch/utils/filtermaker.py'} <= names
+            'ld_decode_tpu_torch/utils/filtermaker.py',
+            'ld_decode_tpu_torch/parallel/mesh.py',
+            'ld_decode_tpu_torch/io/native_unpack.py',
+            'ld_decode_tpu_torch/utils/native_build.py'} <= names
     for path in PORT_FILES:
         with open(path) as f:
             m = FORBIDDEN.search(f.read())
@@ -139,6 +142,28 @@ assert len(filtermaker.design_inventory()) >= 17
 assert filtertools.todb(np.ones(4)).max() == 0.0
 assert len(fdls.fdls_from_filter([0.5, 0.5], [1.0], 0, 1)[0]) == 2
 assert iec60857.interpret_iec60857(0, 0xF80123, 0xF80123).disc_type == 'cav'
+# the loaders' C++ unpack (built with g++) and the mesh in a 1-rank world
+from ld_decode_tpu_torch.io import loaders, native_unpack
+from ld_decode_tpu_torch.utils import native_build
+from ld_decode_tpu_torch.parallel import mesh as M
+s10 = np.arange(4000) % 1024
+assert native_unpack.available() and loaders.unpack_route() == 'native'
+assert (native_unpack.unpack_4_40(loaders.pack_data_4_40(s10), 3990, 2)
+        == s10[2:3992]).all()
+import torch.distributed as dist
+dist.init_process_group('gloo', store=dist.HashStore(), rank=0, world_size=1)
+mesh = M.make_mesh(device='cpu')
+assert (mesh.dp, mesh.sp, mesh.backend) == (1, 1, 'gloo')
+comb3 = M.build_sharded_comb3d(comb_ntsc.CombConfig(dim=3), mesh, 1)
+assert comb3(torch.full((1, 525, 910), 20000, dtype=torch.int32)).shape \
+    == (1, 480, 910, 3)
+scfg = DecoderConfig(blocklen=2048, blockcut=128, blockcut_end=32)
+step = M.build_sharded_demod(scfg, F.make_demod_bank(scfg, device='cpu'),
+                             mesh, 4, 1)
+dm, pidx, pval = step(torch.from_numpy(
+    cap[:4 * scfg.block_keep].astype(np.float32))[None], 1.0)
+assert dm.shape == (1, 4 * scfg.block_keep) and pidx.shape[0] == 1
+dist.destroy_process_group()
 assert not [m for m, mod in sys.modules.items() if mod is not None
             and (m in ('jax', 'ld_decode_tpu')
                  or m.startswith(('jax.', 'ld_decode_tpu.')))]

@@ -92,10 +92,13 @@ def test_cpu_dispatch_takes_plain_version():
     """A CPU tensor takes the plain version and launches nothing."""
     data, lli, llf = _case(1, 2, 1 << 16, 10, 2542.27)
     before = CR.resample_lines_batch.launches
+    wbefore = CR.resample_lines_batch.window_launches
     args = (torch.from_numpy(data), torch.from_numpy(lli),
             torch.from_numpy(llf), 910, 10, 2542.0)
     got = CR.resample_lines_batch(*args)
+    CR.resample_lines_batch(*args, col0=16, ncols=48)
     assert CR.resample_lines_batch.launches == before
+    assert CR.resample_lines_batch.window_launches == wbefore
     assert torch.equal(got, CR.resample_lines_batch_plain(*args))
 
 
@@ -184,8 +187,11 @@ def test_cuda_kernel_matches_plain(name, col0, ncols):
     (data, lli, llf), W, nlines, linelen = _card_case(name)
     args = (data, lli, llf, W, nlines, linelen)
     before = CR.resample_lines_batch.launches
+    wbefore = CR.resample_lines_batch.window_launches
     got = CR.resample_lines_batch(*args, col0=col0, ncols=ncols)
     ref = CR.resample_lines_batch_plain(*args, col0=col0, ncols=ncols)
     torch.cuda.synchronize()
     assert CR.resample_lines_batch.launches == before + 1
+    assert CR.resample_lines_batch.window_launches == \
+        wbefore + (ncols is not None)
     assert torch.equal(got, ref)
