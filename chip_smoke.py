@@ -96,7 +96,22 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      blocklen (dp 1 x sp 2) against the unsharded demod; the sharded 3D
      comb over 16 frames against the sequential chain; three
      data-parallel NN steps against mesh=None at the CPU test's size, and
-     one at the trainer's default width (loss and dp-averaged gradients).
+     one at the trainer's default width (loss and dp-averaged gradients);
+ 23. the transport codecs (tbc/codec.py; csrc/codec_decode.cpp built with
+     g++): the NTSC and PAL captures decoded at batch 16 with pic_mode
+     'codec' and 'raw' -- equal frames, no raw fallback, every field on
+     the native decode route, K1 counted on the codec decode; pic_mode
+     'auto' resolves to raw on the card; one codec batch dispatched under
+     sync-debug "error", its payload equal to the CPU's encode of the same
+     picture (tables, counts, used prefixes); the encode's device time a
+     batch, the shipped ratio, the device-to-host rate and the link rate
+     below which the codec pays; one NTSC (flow) and one PAL (dim 3)
+     comb window with codec=True equal to codec=False, RGB48 and out8, no
+     decode fallback, the RGB encode's device time a window;
+ 24. the legacy PAL comb (comb/comb_pal_legacy.py): two seeded synthetic
+     1052x610 frames at dims 1, 2 and 3 on the card vs the CPU (max 2,
+     p99.9 1 LSB: the CPU test's budget against JAX), the dim-3 primer
+     frame black; device time a frame.
 The line before the last is the kernel JSON; the last line is the result.
 """
 
@@ -2210,6 +2225,271 @@ def mesh_phase(torch, np, cfg, cap, pcfg, pcap, d: str):
     return launches
 
 
+# phase 23: the transport codecs.  The decodes run CODEC_FRAMES frames from
+# a locked start, once a picture mode; one comb window of 4 frames a system
+CODEC_FRAMES = 16
+CODEC_REPS = 5
+
+
+def _decode_frames(torch, FR, cfg, bank, cap, p, mode, n):
+    """n frames of `cap` through Framer(batch=16, pic_mode=mode) from the
+    decode path's locked start: (frames, line-0 words kept, prefetcher
+    stats, seconds)."""
+    fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=p['nblocks'],
+                   device='cuda', pic_mode=mode)
+    frames, sample = [], p['start']
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        rv = fr.readframe(None, sample, i == 0)
+        if rv[0] is None:
+            break
+        frames.append(rv[0])
+        sample = rv[2]
+    torch.cuda.synchronize()
+    return frames, fr.prefetcher.stats, time.perf_counter() - t0
+
+
+def _event_median_ms(torch, fn, reps: int = CODEC_REPS) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def codec_phase(torch, np, systems):
+    """systems: {name: (cfg, cap, bank)}.  Returns K1's launches on the
+    codec decode of each system and the numbers PERF.md keeps."""
+    phase('23 codecs: --pic-mode codec vs raw, card vs cpu encode, the RGB '
+          'codec')
+    from ld_decode_tpu_torch.comb import batch as CB
+    from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig
+    from ld_decode_tpu_torch.comb.comb_pal import CombPALConfig
+    from ld_decode_tpu_torch.tbc import codec as CODEC
+    from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    from ld_decode_tpu_torch.tbc import framer as FR
+    from ld_decode_tpu_torch.tbc import fused as FU
+    from ld_decode_tpu_torch.tbc import native_codec as NC
+    from ld_decode_tpu_torch.tbc import pipeline as PL
+    if not NC.available():
+        fail('the native codec decoder (csrc/codec_decode.cpp) did not '
+             'build with g++')
+    link = PL.probed_link_rate('cuda')
+    print(f'device-to-host link: {link:.1f} MB/s (pinned copies of 64 MB)')
+    k1, res = {}, {'link_MBps': link}
+    for system, (cfg, cap, bank) in systems.items():
+        p = DECODE_PATHS[system]
+        # raw, codec, codec, raw: the pairs' rates compare warm runs
+        raw = _decode_frames(torch, FR, cfg, bank, cap, p, 'raw',
+                             CODEC_FRAMES)
+        CR.resample_lines_batch.launches = 0
+        cod = _decode_frames(torch, FR, cfg, bank, cap, p, 'codec',
+                             CODEC_FRAMES)
+        k1[system] = CR.resample_lines_batch.launches
+        cod2 = _decode_frames(torch, FR, cfg, bank, cap, p, 'codec',
+                              CODEC_FRAMES)
+        raw2 = _decode_frames(torch, FR, cfg, bank, cap, p, 'raw',
+                              CODEC_FRAMES)
+        spf = cfg.freq_hz / cfg.sys.fps
+        rates = [len(r[0]) * spf / r[2] / 1e6 for r in (raw, cod, cod2,
+                                                          raw2)]
+        print(f'{system} decode MSa/s (raw, codec, codec, raw): '
+              + ', '.join(f'{x:.2f}' for x in rates))
+        auto = FR.Framer(cfg, bank, capture=cap[:4 << 20], batch=16,
+                         nblocks=p['nblocks'], device='cuda')
+        auto.prefetcher._use_codec()
+        st = cod[1]
+        per = p['k1_per_batch']
+        expect = per * (st['batches'] + st['seq_decoded'])
+        ratio = st['shipped_u16'] / st['raw_u16']
+        print(f'{system}: {len(cod[0])} frames codec {cod[2]:.3f} s, raw '
+              f'{raw[2]:.3f} s; codec stats: batches {st["batches"]}, '
+              f'decodes native {st["pic_decode_native"]} numpy '
+              f'{st["pic_decode_numpy"]}, raw fallback '
+              f'{st["pic_raw_fallback"]}, top-ups {st["pic_topups"]}, '
+              f'shipped {st["shipped_u16"]} of {st["raw_u16"]} u16 words '
+              f'({ratio:.4f}); K1 launches {k1[system]} (expected '
+              f'{expect}); auto resolves to '
+              f'{auto.prefetcher.stats["pic_mode"]}')
+        if any(len(r[0]) != CODEC_FRAMES or any(
+                not np.array_equal(a, b) for a, b in zip(r[0], raw[0]))
+                for r in (cod, cod2, raw2)):
+            fail(f'{system}: --pic-mode codec .tbc differs from raw')
+        if st['pic_raw_fallback'] or st['pic_decode_numpy'] \
+                or not st['pic_decode_native']:
+            fail(f'{system}: codec route not clean: {st}')
+        if k1[system] != expect or not k1[system]:
+            fail(f'{system}: K1 launches {k1[system]}, expected {expect}')
+        if auto.prefetcher.stats['pic_mode'] != 'raw':
+            fail(f'auto picked the codec on the card (link {link:.1f} '
+                 f'MB/s, threshold {PL.RAW_PIC_MBPS})')
+        del auto
+
+        # one codec batch: the card's encode against the CPU's, a sync-free
+        # dispatch, and the encode's device time
+        fr = FR.Framer(cfg, bank, capture=cap, batch=16,
+                       nblocks=p['nblocks'], device='cuda')
+        f0, rs0, _ = fr.readfield(None, p['start'])
+        rs0 = int(f0.readsample if f0.readsample >= 0 else rs0)
+        n_audio1 = p['nblocks'] * bank.a_stage1_keep
+        pitch = int(round(cfg.freq_hz / cfg.sys.fps / 2))
+        dev = fr.prefetcher.capture.device
+        args = (fr.prefetcher.capture,
+                torch.full((), rs0, dtype=torch.int32, device=dev),
+                torch.full((), 0.0, dtype=torch.float32, device=dev),
+                torch.full((), 1.0, dtype=torch.float32, device=dev), bank,
+                cfg, p['nblocks'], n_audio1, 16, pitch)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            out, _, _ = FU.field_pipeline_batch(*args, codec=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = {k: v.cpu().numpy() for k, v in out.items()
+               if k in ('pic_tab', 'dense', 'dense_q', 'rows2')}
+        want = {k: v.numpy() for k, v in CODEC.encode_picture_payload(
+            out['picture'].cpu(), cfg).items()}
+        rows2 = want['rows2']
+        n, nq = int(rows2[0].sum()), int(rows2[1].sum())
+        same = (np.array_equal(got['rows2'], rows2)
+                and np.array_equal(got['pic_tab'], want['pic_tab'])
+                and np.array_equal(got['dense'][:n], want['dense'][:n])
+                and np.array_equal(got['dense_q'][:nq], want['dense_q'][:nq]))
+        pic = out['picture']
+        enc_ms = _event_median_ms(
+            torch, lambda: CODEC.encode_picture_payload(pic, cfg))
+        raw_bytes = pic.numel() * pic.element_size()
+        coded = 2 * (n + nq + want['pic_tab'].size)
+        thresh = (raw_bytes - coded) / 1e6 / (enc_ms / 1e3)
+        print(f'{system} batch of 16: card encode == cpu encode '
+              f'(tables, counts, used prefixes {n} + {nq} words): {same}; '
+              f'dispatch under sync-debug "error": no host sync; encode '
+              f'{enc_ms:.4f} ms (CUDA events, median of {CODEC_REPS}); raw '
+              f'copy {raw_bytes} bytes (int32), coded {coded} bytes '
+              f'({coded / raw_bytes:.4f}); codec pays below {thresh:.1f} '
+              f'MB/s; link {link:.1f} MB/s')
+        if not same:
+            fail(f'{system}: the card\'s codec encode differs from the CPU\'s')
+        res[system] = dict(encode_ms=enc_ms, ratio=ratio,
+                           batch_ratio=coded / raw_bytes, threshold=thresh,
+                           msa_s=rates)
+        del fr, out, pic
+
+        # one comb window, codec against raw, RGB48 and out8
+        frames = torch.from_numpy(np.stack(cod[0][:4]).astype(np.int32))
+        for out8 in (False, True):
+            outs = {}
+            for codec in (False, True):
+                if system == 'NTSC':
+                    comb = CB.NTSCCombBatch(CombConfig(), out8=out8,
+                                            device='cuda', codec=codec)
+                else:
+                    comb = CB.PALCombBatch(CombPALConfig(dim=3), out8=out8,
+                                           device='cuda', codec=codec)
+                rgb, words = comb.collect(comb.feed(frames.cuda()))
+                if system == 'PAL':
+                    rgb.append(comb.flush())
+                outs[codec] = (rgb, words, comb.stats)
+            (r0, w0, _), (r1, w1, st1) = outs[False], outs[True]
+            rgb_t = torch.from_numpy(np.stack(r1).astype(np.int32)).cuda()
+            E, rows, W, _ = rgb_t.shape
+            img = CODEC.pad_to_blocks(rgb_t.movedim(3, 1).reshape(
+                E, 3 * rows, W))
+            wenc = _event_median_ms(torch, lambda: CODEC.encode_image_payload(
+                img, 1, hpass=not out8))
+            wratio = st1['shipped_u16'] / (len(r1) * rows * W * 3)
+            print(f'{system} comb window ({len(r1)} frames, '
+                  f'{"out8" if out8 else "RGB48"}): codec == raw '
+                  f'{all(np.array_equal(a, b) for a, b in zip(r0, r1))}, '
+                  f'decode fallback {st1["rgb_decode_fallback"]}, native '
+                  f'{st1["rgb_decode_native"]}; encode {wenc:.4f} ms a window '
+                  f'({E} frames); shipped {wratio:.4f} of raw u16')
+            if len(r0) != len(r1) or not r1 or any(
+                    a.dtype != b.dtype or not np.array_equal(a, b)
+                    for a, b in zip(r0, r1)) or any(
+                    not np.array_equal(a, b) for a, b in zip(w0, w1)):
+                fail(f'{system} comb: codec=True differs from codec=False')
+            if st1['rgb_decode_fallback'] or st1['rgb_decode_numpy']:
+                fail(f'{system} comb: RGB codec route not clean: {st1}')
+            res[f'{system} comb {"out8" if out8 else "rgb48"}'] = dict(
+                encode_ms=wenc, frames=E, ratio=wratio)
+    return k1, res
+
+
+# phase 24: the legacy PAL comb, card vs CPU: the CPU test's budget against
+# JAX (tests/test_torch_comb_pal_legacy.py)
+LEGACY_MAX, LEGACY_P999 = 2, 1
+
+
+def _legacy_pal_frame(np, seed: int):
+    """A 1052x610 legacy PAL rawbuffer with a swinging burst and colour
+    bars (the generator of tests/test_comb_pal_legacy.py::synth_frame)."""
+    from ld_decode_tpu_torch.comb.comb_pal_legacy import IRESCALE, L_X, L_Y
+    rng = np.random.default_rng(seed)
+    h = np.arange(L_X, dtype=np.float64)[None, :]
+    l = np.arange(L_Y, dtype=np.float64)[:, None]
+    li = np.arange(L_Y)[:, None]
+    s = np.where((li % 4 == 1) | (li % 4 == 2), 1.0, -1.0)
+    theta = np.pi / 2 * h + np.radians(45.0) * l
+    burst = (10.0 * IRESCALE / np.sqrt(2)) * (-np.cos(theta)
+                                              + s * np.sin(theta))
+    bars = [(80, 0, 0), (50, 15, 0), (50, 0, 15), (50, -12, 8),
+            (45, 0, 0), (50, 10, -12), (20, 0, 0)]
+    y, u, v = (np.zeros((L_Y, L_X)) for _ in range(3))
+    bw = (1040 - 70) / len(bars)
+    for k, (yy, uu, vv) in enumerate(bars):
+        m = (h >= 70 + k * bw) & (h < 70 + (k + 1) * bw)
+        y += np.where(m, yy, 0.0)
+        u += np.where(m, uu, 0.0)
+        v += np.where(m, vv, 0.0)
+    sig = (np.clip((y + 43.122874) * IRESCALE, 1, 65535)
+           + np.where((h >= 16) & (h < 60), burst, 0.0)
+           + IRESCALE * (u * np.cos(theta) + s * v * np.sin(theta))
+           + rng.normal(0, 6.0, (L_Y, L_X)))
+    frame = np.clip(sig, 1, 65535).astype(np.uint16)
+    frame[:24] = 0
+    frame[:, :4] = 1000
+    return frame
+
+
+def legacy_comb_phase(torch, np):
+    phase('24 legacy PAL comb: card vs cpu')
+    from ld_decode_tpu_torch.comb import comb_pal_legacy as LG
+    frames = [_legacy_pal_frame(np, seed) for seed in (0, 1)]
+    res = {}
+    for dim in (1, 2, 3):
+        outs = {}
+        for dev in ('cuda', 'cpu'):
+            comb = LG.LegacyPALComb(LG.LegacyPALConfig(dim=dim), device=dev)
+            outs[dev] = [comb.process(f) for f in frames]
+        for k, (a, b) in enumerate(zip(outs['cuda'], outs['cpu'])):
+            d = np.abs(a.astype(np.int64) - b)
+            p999 = float(np.percentile(d, 99.9))
+            print(f'dim {dim} frame {k}: max {int(d.max())} p99.9 {p999} '
+                  f'LSB, {float((d > 0).mean()):.5f} of values differ')
+            if d.max() > LEGACY_MAX or p999 > LEGACY_P999 \
+                    or a.shape != (576, 974, 3):
+                fail(f'legacy PAL comb card vs cpu outside the budget (max '
+                     f'{LEGACY_MAX}, p99.9 {LEGACY_P999} LSB)')
+        if dim == 3 and (outs['cuda'][0].max() or not outs['cuda'][1].max()):
+            fail('legacy PAL comb dim 3: the primer frame is not black')
+        raw = torch.from_numpy(frames[0].astype(np.int32)).cuda()
+        cfg = LG.LegacyPALConfig(dim=dim)
+        res[dim] = _event_median_ms(
+            torch, lambda: LG.comb_pal_legacy_frame(raw, cfg))
+        print(f'dim {dim}: {res[dim]:.4f} ms a frame on the card (CUDA '
+              f'events, median of {CODEC_REPS})')
+    return res
+
+
 def main():
     if sys.argv[1:2] == ['--mesh-rank']:
         return mesh_rank(sys.argv[2:])
@@ -2269,6 +2549,13 @@ def run(torch, np, work: str):
     loader_phase(torch, np, cfg, cap, _subdir(work, 'loader'))
     sharded = mesh_phase(torch, np, cfg, cap, pcfg, pcap,
                          _subdir(work, 'mesh'))
+    from ld_decode_tpu_torch.ops import filters as F
+    codec_k1, _ = codec_phase(torch, np, {
+        'NTSC': (cfg, cap, F.make_demod_bank(cfg, np.complex64,
+                                             device='cuda')),
+        'PAL': (pcfg, pcap, F.make_demod_bank(pcfg, np.complex64,
+                                              device='cuda'))})
+    legacy_comb_phase(torch, np)
     if 'jax' in sys.modules:
         fail('jax was imported')
 
@@ -2283,13 +2570,15 @@ def run(torch, np, work: str):
           f'file {k3["launches"]}, ldexport {two["k3"]}; K1 in the sharded '
           f'decode: NTSC {sharded["NTSC"]} + burst window '
           f'{sharded["NTSC burst window"]}, PAL {sharded["PAL"]} (ranks '
-          f'summed, by world size)')
+          f'summed, by world size); K1 on the --pic-mode codec decode: '
+          f'NTSC {codec_k1["NTSC"]}, PAL {codec_k1["PAL"]}')
     # the sharded decode is this slice's path: its `launches` are the
     # 2-rank world's, summed over the ranks
     k1_paths = {'ntsc seq decode': seq_ntsc, 'pal seq decode': seq_pal,
                 'ldview': two['k1_view'], 'pal decode': pal_launches,
                 'pal chain': pal_k1, 'ntsc decode': launches,
-                'ntsc chain': k1,
+                'ntsc chain': k1, 'ntsc codec decode': codec_k1['NTSC'],
+                'pal codec decode': codec_k1['PAL'],
                 'sharded decode': {f'{s.lower()} {w} rank{"s" * (w > 1)}': n
                                    for s, by in sharded.items()
                                    for w, n in by.items()}}
@@ -2299,6 +2588,14 @@ def run(torch, np, work: str):
                      ms_method=MS_METHOD)
     k3_launches = k3.pop('launches')
     print(json.dumps({'kernels': [
+        dict(name='resample_lines_batch[ntsc codec]',
+             shape='ntsc picture (16, 263, 910), --pic-mode codec',
+             launches=codec_k1['NTSC'], **k1_common,
+             **kres['K1']['ntsc picture']),
+        dict(name='resample_lines_batch[pal codec]',
+             shape='pal picture (16, 313, 1135), --pic-mode codec',
+             launches=codec_k1['PAL'], **k1_common,
+             **kres['K1']['pal-width picture']),
         dict(name='resample_lines_batch[ntsc shard]',
              shape='ntsc shard picture (8, 263, 910)',
              launches=sharded['NTSC'][2], **k1_common,

@@ -184,7 +184,8 @@ def build_pipeline_batch_sharded(cfg: DecoderConfig, bank: DemodBank,
                                  mesh: Mesh, nblocks: int, n_audio1: int,
                                  batch: int, field_pitch: int,
                                  colorlevel: float = 1.45,
-                                 colorphase: float = 91.5):
+                                 colorphase: float = 91.5,
+                                 codec: bool = False):
     """Multi-rank `fused.field_pipeline_batch`: the whole speculative
     field batch -- demod, vsync/line voting, hsync/burst (or pilot)
     refinement, the picture resample (K1), audio chase, VBI -- sharded
@@ -203,9 +204,10 @@ def build_pipeline_batch_sharded(cfg: DecoderConfig, bank: DemodBank,
     batch's start.  Each rank decodes its fields, all-gathers the int32
     line counts, next-field offsets and window starts, replays the whole
     float32 offset chain in the single-device op order, and keeps its
-    slice.  JAX's version also returns the link codec's payloads (dense
-    planes, quotient streams, row counts); the port has no link codec
-    yet (ROADMAP.md Queue 1, C5)."""
+    slice.  codec=True adds the picture codec's payloads of the rank's
+    own fields ('pic_tab', 'dense', 'dense_q', 'rows2'): each rank
+    compacts its fields, as each of JAX's shards does, so the ranks' used
+    prefixes in rank order are the whole batch's."""
     from ld_decode_tpu_torch.tbc import fused as FU
 
     nd = mesh.size
@@ -221,7 +223,8 @@ def build_pipeline_batch_sharded(cfg: DecoderConfig, bank: DemodBank,
         return FU.field_pipeline_batch(
             capture, start0, audio_offset0, mtf_level, bank, cfg, nblocks,
             n_audio1, lb, field_pitch, colorlevel, colorphase, valid_len,
-            batch_index=mesh.rank * lb, gather_carry=gather_carry)
+            batch_index=mesh.rank * lb, gather_carry=gather_carry,
+            codec=codec)
 
     return shard_fn
 

@@ -64,14 +64,14 @@ class Framer:
                  despackle: bool = False, segment_samples: int = 0,
                  rot_level: float = 40.0, flip_fields: bool = False,
                  bff: bool = False, device=DEFAULT_DEVICE,
-                 fetch_picture: bool = True):
+                 fetch_picture: bool = True, pic_mode: str = 'auto'):
         """Either `loader` (file reads) or `capture` (the whole capture kept
         on the device) must be given.  The parameters up to `nblocks` take
-        the JAX package's positions; two defaults differ from it on
+        the JAX package's positions; one default differs from it on
         purpose: `batch` is 8 here and 1 there (so `Framer(cfg, bank,
-        loader)` decodes batched here and sequentially there), and
-        `pic_mode` (how the JAX package ships pictures over a slow device
-        link) does not exist here, since the port copies the raw picture.
+        loader)` decodes batched here and sequentially there).  `device`
+        comes before `fetch_picture` and `pic_mode`, which JAX's Framer
+        ends with: pass them by keyword.
 
         full_decode=False locates fields without decoding their content,
         as the JAX package does: at batch=1 a field skips the burst or
@@ -84,7 +84,10 @@ class Framer:
         device-resident segment of `segment_samples`; the audio carry
         advances per field.  fetch_picture=False is the chain mode: the
         fields' pictures stay on the device and readframe returns the woven
-        frame as a device tensor (int32) for the comb.
+        frame as a device tensor (int32) for the comb.  pic_mode ('auto',
+        'codec' or 'raw') is how a fetched picture crosses to the host
+        (tbc/pipeline.py): 'auto' measures the device-to-host rate once
+        and takes the raw copy on the card and on the CPU.
 
         batch=1: one field a call, in order (the JAX package's default): a
         loader's window of each field is read and decoded by
@@ -114,7 +117,8 @@ class Framer:
         if batch > 1:
             self.prefetcher = FieldPrefetcher(self.decoder, self.capture_dev,
                                               batch,
-                                              fetch_picture=fetch_picture)
+                                              fetch_picture=fetch_picture,
+                                              pic_mode=pic_mode)
         if self.prefetcher is not None and self.capture_dev is None:
             if segment_samples <= 0:
                 segment_samples = 256 << 20      # 1 GiB of float32

@@ -1,6 +1,6 @@
 """Speculative field-batch prefetcher (torch port of
-ld_decode_tpu/tbc/pipeline.py: the raw-picture mode, and the chain mode
-in which the picture stays on the device).
+ld_decode_tpu/tbc/pipeline.py: the raw and codec picture modes, and the
+chain mode in which the picture stays on the device).
 
 Each batch of `batch` predicted field windows is decoded by one call of
 `fused.field_pipeline_batch`.  The call takes its (start0, audio_offset0)
@@ -17,10 +17,22 @@ As in the JAX package, the audio chase resampler's carry offset advances
 every field in batched mode (deterministic float32 arithmetic):
     count = ceil((frametime + gap - offset)/gap)
     offset' = offset + (count-1)*gap - frametime.
+
+pic_mode says how a picture reaches the host: 'raw' copies the picture,
+'codec' the lossless codec's payloads (tbc/codec.py): the block tables and
+counts with the batch's other outputs, and the used prefixes of the dense
+buffers, EMA-sized at dispatch and topped up on an underestimate; the raw
+picture stays on the device as the fallback of a field whose payload fails
+the consistency gate (counted in `pic_raw_fallback`).  'auto' (the
+default) picks by the rule of the JAX package: the codec where the
+measured device-to-host rate is below what its encode costs per byte it
+saves (RAW_PIC_MBPS), else raw.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import os
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -31,6 +43,7 @@ import torch
 
 from ld_decode_tpu_torch.vbi.philips import interpret_philips
 from ld_decode_tpu_torch.ops import demod as D
+from ld_decode_tpu_torch.tbc import codec as CODEC
 from ld_decode_tpu_torch.tbc import fused as FU
 from ld_decode_tpu_torch.tbc.field import FieldDecoder, FieldResult
 from ld_decode_tpu_torch.utils.device import to_host_async
@@ -44,17 +57,63 @@ class _Entry:
     audio_offset: float
 
 
+# The codec pays where the bytes it saves take longer on the link than its
+# encode takes on the device: below RAW_PIC_MBPS = (raw bytes - coded
+# bytes) / encode time a batch, the JAX package's rule (its 200 MB/s came
+# from a TPU encode).  chip_smoke.py phase 23 on an NVIDIA H100 80GB HBM3
+# at 700 W, batches of 16 synthetic fields (the raw picture copied as
+# int32): NTSC 11.31 MB saved for 3.42 ms of encode, 3,306 MB/s; PAL 2,847
+# MB/s; the larger is kept.  The card's pinned link measured 53,425 MB/s.
+RAW_PIC_MBPS = 3306.0
+
+_LINK_RATE: Dict[str, float] = {}
+
+
+def probed_link_rate(device) -> float:
+    """Device-to-host copy rate in MB/s (cached per device): the median of
+    3 pinned, asynchronous copies of 64 MB timed by CUDA events.  On the
+    CPU the picture is host memory already: infinite."""
+    dev = torch.device(device)
+    if dev.type != 'cuda':
+        return float('inf')
+    key = str(dev)
+    if key not in _LINK_RATE:
+        n = 32 << 20
+        src = torch.ones(n, dtype=torch.int16, device=dev)
+        dst = torch.empty(n, dtype=torch.int16, pin_memory=True)
+        dst.copy_(src, non_blocking=True)               # warm the path
+        times = []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+        _LINK_RATE[key] = 2 * n / 1e6 / sorted(times)[1]
+    return _LINK_RATE[key]
+
+
 class _InFlight:
     """One dispatched batch: its outputs (host copies in flight on the
-    card), the chained device scalars and the mtf level it ran at."""
+    card), the chained device scalars and the mtf level it ran at.  The
+    picture stays on the device in chain mode and in codec mode, where the
+    dense buffers stay too and only their prefixes are copied."""
 
     def __init__(self, out: Dict[str, torch.Tensor], next_start0,
-                 next_offset0, mtf_level: float, fetch_picture: bool = True):
+                 next_offset0, mtf_level: float, fetch_picture: bool = True,
+                 prefixes: Optional[CODEC.PrefixCopies] = None):
         self.next_start0 = next_start0
         self.next_offset0 = next_offset0
         self.mtf_level = mtf_level
-        # chain mode: the batch picture stays where it was computed
-        self.picture_dev = None if fetch_picture else out.pop('picture')
+        self.codec = 'dense' in out
+        self.picture_dev = out.pop('picture') \
+            if self.codec or not fetch_picture else None
+        if self.codec:
+            self.dense = out.pop('dense')
+            self.dense_q = out.pop('dense_q')
+            prefixes.start(out, self.dense, self.dense_q)
         self.out, self.event = to_host_async(out)
 
     def numpy(self) -> Dict[str, np.ndarray]:
@@ -69,12 +128,21 @@ class FieldPrefetcher:
     DEPTH = 3
 
     def __init__(self, decoder: FieldDecoder, capture: torch.Tensor,
-                 batch: int = 8, fetch_picture: bool = True):
+                 batch: int = 8, fetch_picture: bool = True,
+                 pic_mode: str = 'auto'):
         """fetch_picture=False is the chain mode: each FieldResult carries
         its picture as `dev_picture` (the batch tensor and its index) and
-        no picture is copied to the host."""
+        no picture is copied to the host.  pic_mode ('auto', 'codec' or
+        'raw', see the module docstring) applies where the picture is
+        fetched."""
+        if pic_mode not in ('auto', 'codec', 'raw'):
+            raise ValueError(f'pic_mode {pic_mode!r}')
         self.decoder = decoder
         self.fetch_picture = fetch_picture
+        self.pic_mode = pic_mode
+        self._codec_on = None          # resolved at the first dispatch
+        self._prefixes = CODEC.PrefixCopies()
+        self._decode_ex = None
         self.capture = capture
         # absolute file sample of capture[0]: public positions are
         # absolute, device windows capture-relative (nonzero in segmented
@@ -98,8 +166,10 @@ class FieldPrefetcher:
                       'flush_mtf': 0, 'flush_audio': 0, 'seq_fallback': 0,
                       'seq_decoded': 0,
                       'batches': 0, 'flight_flush': 0, 'skips': 0,
-                      'cache_hits': 0, 't_dispatch': 0.0, 't_fetch': 0.0,
-                      't_unpack': 0.0}
+                      'cache_hits': 0, 'pic_raw_fallback': 0,
+                      'pic_decode_native': 0, 'pic_decode_numpy': 0,
+                      'pic_topups': 0, 'shipped_u16': 0, 'raw_u16': 0,
+                      't_dispatch': 0.0, 't_fetch': 0.0, 't_unpack': 0.0}
         self._flight: deque = deque()
         self._mtf_dev = (None, None)
 
@@ -129,6 +199,18 @@ class FieldPrefetcher:
 
     # ------------------------------------------------------------------
 
+    def _use_codec(self) -> bool:
+        """Resolve pic_mode once per prefetcher (the probe is cached per
+        device)."""
+        if self._codec_on is None:
+            if self.pic_mode == 'auto':
+                self._codec_on = probed_link_rate(self.decoder.device) \
+                    < RAW_PIC_MBPS
+            else:
+                self._codec_on = self.pic_mode == 'codec'
+            self.stats['pic_mode'] = 'codec' if self._codec_on else 'raw'
+        return self._codec_on
+
     def _dispatch(self, start0, offset0, mtf_level: float):
         """Queue one batch; start0/offset0 are device scalars (host values
         at a refill, the previous batch's return afterwards)."""
@@ -143,9 +225,10 @@ class FieldPrefetcher:
             self.capture, start0, offset0, self._mtf_dev[1], dec.bank,
             dec.cfg, dec.nblocks, n_audio1, self.batch, self.field_pitch,
             colorlevel=dec.colorlevel, colorphase=dec.colorphase,
-            valid_len=self.valid_len)
+            valid_len=self.valid_len,
+            codec=self.fetch_picture and self._use_codec())
         self._flight.append(_InFlight(out, nso, noo, mtf_level,
-                                      self.fetch_picture))
+                                      self.fetch_picture, self._prefixes))
         self.stats['batches'] += 1
         self.stats['t_dispatch'] += time.perf_counter() - t0
 
@@ -165,6 +248,7 @@ class FieldPrefetcher:
         nlines = FU.max_nlines(cfg)
         W = cfg.sys.outlinelen
         out: List[_Entry] = []
+        pic_jobs = []
         prev_rs = -1
         clean = True
         for b in range(self.batch):
@@ -193,7 +277,9 @@ class FieldPrefetcher:
                 nout = (int(data['audio_count'][b]) - 1) * 2
                 r.dsaudio = data['audio'][b][:nout]
             r.audio_next_offset = float(data['audio_next_offset'][b])
-            if fl.picture_dev is None:
+            if fl.codec:
+                pic_jobs.append((b, r, lc))
+            elif fl.picture_dev is None:
                 r.dspicture = data['picture'][b].reshape(-1)[:lc * W].astype(
                     np.uint16)
             else:
@@ -204,9 +290,47 @@ class FieldPrefetcher:
             # downstream in-flight batches chained off garbage state
             self._flight.clear()
             self.stats['flight_flush'] += 1
+        if fl.codec:
+            self._decode_pictures(fl, data, pic_jobs)
         self.stats['t_fetch'] += t1 - t0
         self.stats['t_unpack'] += time.perf_counter() - t1
         return out
+
+    def _decode_pictures(self, fl: _InFlight, data, jobs):
+        """The codec route: each field's picture decoded from its region of
+        the dense prefixes (fields in parallel; the native decode releases
+        the GIL), through the consistency gate; a field that fails it
+        copies its raw picture from the device."""
+        cfg = self.decoder.cfg
+        L, W, Wp, _, k = FU.pic_codec_params(cfg)
+        rows2 = data['rows2'].astype(np.int64)
+        before = self._prefixes.topups
+        dense, dense_q = self._prefixes.finish(data, fl.dense, fl.dense_q,
+                                               rows2)
+        self.stats['pic_topups'] += self._prefixes.topups - before
+        n = rows2.shape[1]
+        self.stats['shipped_u16'] += int(rows2.sum()) \
+            + data['pic_tab'].size
+        self.stats['raw_u16'] += n * L * W
+        if self._decode_ex is None:
+            self._decode_ex = concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(8, os.cpu_count() or 1))
+        # the fields past an invalid one are not decoded
+        m = len(jobs)
+        results = CODEC.decode_batch(data['pic_tab'][:m].view(np.uint16),
+                                     dense, dense_q, rows2[:, :m], (L, Wp),
+                                     k, False, self._decode_ex)
+        for (b, r, lc), (img, route) in zip(jobs, results):
+            if route is not None:
+                self.stats[f'pic_decode_{route}'] += 1
+            if img is None:
+                # defensive only: the capacity covers all 16 planes, so no
+                # content can fail the gate
+                self.stats['pic_raw_fallback'] += 1
+                pic = fl.picture_dev[b].cpu().numpy().astype(np.uint16)
+            else:
+                pic = img[:, :W]
+            r.dspicture = pic.reshape(-1)[:lc * W]
 
     # ------------------------------------------------------------------
 

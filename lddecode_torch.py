@@ -2,8 +2,7 @@
 """CLI front-end of the PyTorch port: raw RF LaserDisc capture -> <out>.tbc
 (4fsc 16-bit frames) + <out>.pcm (16-bit 48 kHz stereo).
 
-Same arguments as lddecode_tpu.py, minus --pic-mode (a transfer mode of
-the JAX package), plus --device.  Decodes on the CUDA device (--device,
+Same arguments as lddecode_tpu.py, plus --device.  Decodes on the CUDA device (--device,
 default `cuda`); without one it fails unless `--device cpu` asks for the
 CPU.  NTSC and PAL (-p); --efm also pulls the EFM digital audio out of the
 capture on the host (<out>.efm.pcm + <out>.subcode.log).  --batch 1 decodes
@@ -47,6 +46,11 @@ def parse_args(argv=None):
                    help='device-resident capture window, MB of 16-bit '
                         'samples (decoding runs inside a sliding segment '
                         'of the file)')
+    p.add_argument('--pic-mode', choices=['auto', 'codec', 'raw'],
+                   default='auto',
+                   help='picture transfer mode for the batched pipeline: '
+                        'lossless codec (slow links), chunked raw (fast '
+                        'PCIe-class links), or auto (probe once and pick)')
     p.add_argument('--f64', action='store_true',
                    help='run the filter bank at float64')
     p.add_argument('--despackle', action='store_true',
@@ -115,7 +119,7 @@ def main(argv=None):
                            segment_samples=args.segment_mb * (1 << 20) // 2,
                            despackle=args.despackle, rot_level=args.rot,
                            flip_fields=args.flip, bff=args.bff,
-                           device=device)
+                           device=device, pic_mode=args.pic_mode)
 
         if args.seek >= 0:
             nextsample = FR.findframe(fd, framer, args.seek,

@@ -141,6 +141,67 @@ def test_native_unpack_equal(ext):
                 np.testing.assert_array_equal(a, want)
 
 
+def test_native_codec_source_is_a_copy():
+    """csrc/codec_decode.cpp is native/codec_decode.cpp byte for byte."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, 'ld_decode_tpu_torch', 'csrc',
+                           'codec_decode.cpp'), 'rb') as f:
+        port = f.read()
+    with open(os.path.join(root, 'native', 'codec_decode.cpp'), 'rb') as f:
+        assert port == f.read()
+
+
+@pytest.mark.parametrize('hpass', [False, True])
+def test_codec_host_decoders_equal(hpass):
+    """The port's numpy decode (unpack_tab, _block_rank_np,
+    shipped_plane_words_np, decode_image_planes) and its native decoder
+    against the JAX package's, on one payload of the JAX encode with
+    planes and Rice blocks."""
+    import jax
+    import jax.numpy as jnp
+    from ld_decode_tpu.tbc import fused as JFU
+    from ld_decode_tpu.tbc import native_codec as JNC
+    from ld_decode_tpu_torch.tbc import codec as TC
+    from ld_decode_tpu_torch.tbc import native_codec as TNC
+    rng = np.random.default_rng(19)
+    R, C, k = 24, 160, 2
+    x = 0x3000 + rng.integers(-20, 20, (R, C))
+    x[::5, ::13] += 2500
+    x[3:6] = rng.integers(0, 65536, (3, C))
+    NB = C // 16
+    with jax.enable_x64(False):
+        planes, tab, q, qw = jax.jit(JFU.encode_image_planes,
+                                     static_argnums=(1, 2))(
+            jnp.asarray(x.astype(np.int32)), k, hpass)
+        dense, rows = jax.jit(JFU.compact_planes, static_argnums=2)(
+            planes[None], tab[None], JFU.codec_cap_words(R * NB))
+        words = np.asarray(jax.jit(JFU.pack_tab)(tab))
+    tab, q = np.asarray(tab), np.asarray(q)[:int(qw)]
+    dense = np.asarray(dense)[:int(rows[0])]
+    assert (tab >> 5).any() and (tab & 0x1F).max() == 16
+    t_tab = TC.unpack_tab(words, R, NB)
+    np.testing.assert_array_equal(t_tab, JFU.unpack_tab(words, R, NB))
+    nw = (t_tab & 0x1F).reshape(-1)
+    for a, b in zip(TC._block_rank_np(nw), JFU._block_rank_np(nw)):
+        np.testing.assert_array_equal(a, b)
+    assert TC.shipped_plane_words_np(nw) == JFU.shipped_plane_words_np(nw) \
+        == int(rows[0])
+    got = TC.decode_image_planes(t_tab, dense, q, (R, C), k, hpass=hpass)
+    np.testing.assert_array_equal(got, JFU.decode_image_planes(
+        t_tab, dense, q, (R, C), k, hpass=hpass))
+    np.testing.assert_array_equal(got, x.astype(np.uint16))
+    assert TNC.available()
+    np.testing.assert_array_equal(TNC.unpack_tab(words, R * NB),
+                                  t_tab.reshape(-1))
+    img, shipped = TNC.decode_image(t_tab, dense, q, (R, C), k, hpass)
+    np.testing.assert_array_equal(img, got)
+    assert shipped == int(rows[0])
+    if JNC.available():
+        jimg, jshipped = JNC.decode_image(t_tab, dense, q, (R, C), k, hpass)
+        np.testing.assert_array_equal(img, jimg)
+        assert shipped == jshipped
+
+
 def test_philips_host_equal():
     rng = np.random.default_rng(9)
     data = np.cumsum(rng.standard_normal(4000))

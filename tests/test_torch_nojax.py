@@ -48,7 +48,10 @@ def test_port_sources_import_no_jax():
             'ld_decode_tpu_torch/utils/filtermaker.py',
             'ld_decode_tpu_torch/parallel/mesh.py',
             'ld_decode_tpu_torch/io/native_unpack.py',
-            'ld_decode_tpu_torch/utils/native_build.py'} <= names
+            'ld_decode_tpu_torch/utils/native_build.py',
+            'ld_decode_tpu_torch/tbc/codec.py',
+            'ld_decode_tpu_torch/tbc/native_codec.py',
+            'ld_decode_tpu_torch/comb/comb_pal_legacy.py'} <= names
     for path in PORT_FILES:
         with open(path) as f:
             m = FORBIDDEN.search(f.read())
@@ -164,6 +167,21 @@ dm, pidx, pval = step(torch.from_numpy(
     cap[:4 * scfg.block_keep].astype(np.float32))[None], 1.0)
 assert dm.shape == (1, 4 * scfg.block_keep) and pidx.shape[0] == 1
 dist.destroy_process_group()
+# the transport codec (native decoder built with g++) and the legacy comb
+from ld_decode_tpu_torch.tbc import codec, native_codec
+from ld_decode_tpu_torch.comb import comb_pal_legacy as legacy
+img = (np.arange(48 * 64).reshape(48, 64) * 37 % 65536).astype(np.int32)
+pay = {k: v.numpy() for k, v in codec.encode_image_payload(
+    torch.from_numpy(img)[None], 2).items()}
+assert native_codec.route() == 'native'
+dec, route = codec.decode_payload(
+    pay['tab'][0].view(np.uint16), pay['dense'].view(np.uint16),
+    pay['dense_q'].view(np.uint16), (48, 64), 2, False,
+    int(pay['rows2'][0, 0]))
+assert route == 'native' and (dec == img).all()
+rgb = legacy.LegacyPALComb(legacy.LegacyPALConfig(), device='cpu').process(
+    np.full((610, 1052), 20000, np.uint16))
+assert rgb.shape == (576, 974, 3) and rgb.dtype == np.uint16
 assert not [m for m, mod in sys.modules.items() if mod is not None
             and (m in ('jax', 'ld_decode_tpu')
                  or m.startswith(('jax.', 'ld_decode_tpu.')))]

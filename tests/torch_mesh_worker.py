@@ -26,6 +26,7 @@ from ld_decode_tpu_torch.parallel import mesh as M  # noqa: E402
 from ld_decode_tpu_torch.utils.params import DecoderConfig  # noqa: E402
 
 TIMEOUT_S = 120          # a collective that waits longer fails the rank
+CODEC_KEYS = ('pic_tab', 'dense', 'dense_q', 'rows2')
 
 # the NN trainer's test run (the JAX package's tests/test_parallel.py)
 NN = dict(steps=3, batch=4, h=16, w=64, features=(8, 8), seed=5, lr=3e-3)
@@ -92,11 +93,15 @@ def main(rank: int, world: int, port: int, workdir: str):
             if pbank.has_audio else 0
         fn = M.build_pipeline_batch_sharded(
             pcfg, pbank, mesh, p['nblocks'], n_audio1, p['batch'],
-            p['pitch'])
+            p['pitch'], codec=True)
         cap = torch.from_numpy(inp[f'cap_{system}'].astype(np.float32))
         out, ns, no = fn(cap, p['start'], p['offset0'], 1.0)
         for k, v in out.items():
-            res[f'{system}_{k}'] = v.numpy()
+            # the codec payloads are the rank's own buffers: kept apart
+            # from the per-field rows the test concatenates
+            name = f'codec_{system}_{k}' if k in CODEC_KEYS \
+                else f'{system}_{k}'
+            res[name] = v.numpy()
         res[f'{system}_next'] = np.array([int(ns), float(no)])
 
     frames = torch.from_numpy(inp['comb_frames'].astype(np.int32))
