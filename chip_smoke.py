@@ -111,7 +111,20 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
  24. the legacy PAL comb (comb/comb_pal_legacy.py): two seeded synthetic
      1052x610 frames at dims 1, 2 and 3 on the card vs the CPU (max 2,
      p99.9 1 LSB: the CPU test's budget against JAX), the dim-3 primer
-     frame black; device time a frame.
+     frame black; device time a frame;
+ 25. the compile boundary (utils/graphs.py), graphs vs eager in one call:
+     6 chained NTSC and PAL batch calls through a GraphCache, every
+     output and chained scalar bit-equal, one call's device operations
+     and host launch calls and host time both ways; the NTSC and PAL
+     decode paths and one NTSC --pic-mode codec decode with Framer(graphs=
+     False) and the default graphs, the .tbc frames, .pcm audio and every
+     field's line locations, burst levels and VBI bit-equal, K1 launches
+     equal; the NTSC chain with flow over phase 4's capture played twice,
+     RGB48 frames and words bit-equal, K1 and K2 launches equal; the
+     warm-ups, captures, replays and capture seconds, t_dispatch a batch,
+     MSa/s or RGB frames/s (whole runs and steady state) and peak device
+     memory both ways.
+Every decode and chain phase runs with the default graphs on.
 The line before the last is the kernel JSON; the last line is the result.
 """
 
@@ -2490,6 +2503,302 @@ def legacy_comb_phase(torch, np):
     return res
 
 
+# phase 25: the compile boundary, graphs vs eager in one call (eager
+# first).  GRAPH_BATCHES chained batch calls a system through a GraphCache;
+# the decode paths' frames (NTSC 40, PAL 32), timed whole and after the
+# first frame (whose refill holds the graph's warm-up and capture); the
+# chain over GRAPH_CHAIN_FRAMES frames of phase 4's capture played twice
+# (windows of 8: M = 7, then 9), timed whole and, in steady state, over
+# the frames pushed from GRAPH_CHAIN_STEADY on (the comb's graph is
+# captured in the third window)
+GRAPH_BATCHES, GRAPH_CHAIN_FRAMES, GRAPH_CHAIN_STEADY = 6, 72, 32
+
+
+def _launch_profile(torch, fn) -> dict:
+    """fn() once under torch.profiler: the device operations it ran and
+    the host's launch calls (kernel launches and graph launches)."""
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    return dict(
+        device_ops=sum(e.count for e in ev
+                       if e.device_type == DeviceType.CUDA),
+        kernel_launch_calls=sum(e.count for e in ev
+                                if e.device_type == DeviceType.CPU
+                                and 'LaunchKernel' in e.key),
+        graph_launch_calls=sum(e.count for e in ev
+                               if e.device_type == DeviceType.CPU
+                               and 'GraphLaunch' in e.key))
+
+
+def _graph_batches(torch, np, FU, G, cfg, bank, cap_t, start, nblk, mode):
+    """GRAPH_BATCHES chained batch calls of 16 fields through a GraphCache
+    (mode None: graphs; 'eager'), each batch's outputs and chained
+    scalars copied to the host; then one more call profiled, and the
+    host time of 3 more calls (no synchronisation inside)."""
+    cache = G.GraphCache('cuda', mode)
+    n_audio1 = nblk * bank.a_stage1_keep
+    pitch = int(round(cfg.freq_hz / cfg.sys.fps / 2))
+
+    def fn(s, o, m):
+        return FU.field_pipeline_batch(cap_t, s, o, m, bank, cfg, nblk,
+                                       n_audio1, 16, pitch)
+
+    state = [torch.full((), start, dtype=torch.int32, device='cuda'),
+             torch.zeros((), device='cuda'), torch.ones((), device='cuda')]
+    outs = []
+
+    def step():
+        out, state[0], state[1] = cache('batch', fn, state, reads=(cap_t,))
+        return out
+
+    for _ in range(GRAPH_BATCHES):
+        host = {k: v.cpu().numpy() for k, v in step().items()}
+        host['chain'] = np.array([float(state[0]), float(state[1])])
+        outs.append(host)
+    prof = _launch_profile(torch, step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    prof['host_ms'] = (time.perf_counter() - t0) / 3 * 1e3
+    torch.cuda.synchronize()
+    return outs, prof, cache
+
+
+def _graph_decode(torch, np, FR, CR, cfg, bank, cap, p, graphs, pic_mode):
+    """The decode path's frames through Framer(batch 16, graphs=...):
+    frames, audio and each field's line locations, burst levels and VBI,
+    K1 launches, the rate and t_dispatch a batch over the whole run and
+    after the first frame, peak device memory, the cache's counts."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CR.resample_lines_batch.launches = 0
+    fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=p['nblocks'],
+                   device='cuda', pic_mode=pic_mode, graphs=graphs)
+    st = fr.prefetcher.stats
+    frames, audio, fields = [], [], []
+    sample = p['start']
+    t0 = time.perf_counter()
+    for i in range(p['want']):
+        rv = fr.readframe(None, sample, i == 0)
+        if rv[0] is None:
+            fail(f'{cfg.system} decode (graphs={graphs}) ended at frame {i}')
+        if i == 0:
+            t1, st1 = time.perf_counter(), dict(st)
+        frames.append(rv[0])
+        audio.append(rv[1])
+        fields += [(f.readsample, f.linelocs, f.burstlevel, f.vbi)
+                   for f in rv[3]]
+        sample = rv[2]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    spf = cfg.freq_hz / cfg.sys.fps
+    return dict(frames=frames, audio=audio, fields=fields,
+                k1=CR.resample_lines_batch.launches,
+                msas=p['want'] * spf / (t2 - t0) / 1e6,
+                steady=(p['want'] - 1) * spf / (t2 - t1) / 1e6,
+                dispatch_ms=st['t_dispatch'] / st['batches'] * 1e3,
+                steady_dispatch_ms=(st['t_dispatch'] - st1['t_dispatch'])
+                / max(st['batches'] - st1['batches'], 1) * 1e3,
+                batches=st['batches'],
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                reserved_mib=torch.cuda.max_memory_reserved() / 2**20,
+                counts=dict(fr.prefetcher.graphs.counts),
+                capture_s=sum(fr.prefetcher.graphs.capture_seconds.values()))
+
+
+def _graph_chain(torch, np, FR, CR, CG, CB, CombConfig, cfg, bank, cap,
+                 graphs):
+    """GRAPH_CHAIN_FRAMES frames through the chain (Framer chain mode and
+    the NTSC flow comb in CombWindows(8, 3)), graphs on or off: the RGB
+    frames and words, K1 and K2 launches, RGB frames/s over the whole run
+    and frames pushed per second from GRAPH_CHAIN_STEADY on, the comb's
+    t_feed a window (all windows; the steady ones), peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CR.resample_lines_batch.launches = 0
+    CG.take_along_axis.launches = 0
+    fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=52,
+                   device='cuda', fetch_picture=False, graphs=graphs)
+    comb = CB.NTSCCombBatch(CombConfig(dim=3), device='cuda', graphs=graphs)
+    rgbs, words = [], []
+    windows = CB.CombWindows(comb, 8, 3, lambda r, w: (rgbs.append(r),
+                                                       words.append(w)))
+    sample = 33046
+    t0 = time.perf_counter()
+    for i in range(GRAPH_CHAIN_FRAMES):
+        if i == GRAPH_CHAIN_STEADY:
+            t1, c1 = time.perf_counter(), dict(comb.stats)
+        rv = fr.readframe(None, sample, i == 0)
+        if rv[0] is None:
+            fail(f'chain (graphs={graphs}) ended at frame {i}')
+        windows.push(rv[0].reshape(525, 910))
+        sample = rv[2]
+    t2, c2 = time.perf_counter(), dict(comb.stats)
+    windows.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = fr.prefetcher.stats
+    return dict(rgbs=rgbs, words=words, fps=len(rgbs) / dt,
+                steady_fps=(GRAPH_CHAIN_FRAMES - GRAPH_CHAIN_STEADY)
+                / (t2 - t1),
+                k1=CR.resample_lines_batch.launches,
+                k2=CG.take_along_axis.launches,
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                reserved_mib=torch.cuda.max_memory_reserved() / 2**20,
+                decode=dict(fr.prefetcher.graphs.counts),
+                comb=dict(comb.graphs.counts),
+                capture_s=sum(comb.graphs.capture_seconds.values())
+                + sum(fr.prefetcher.graphs.capture_seconds.values()),
+                dispatch_ms=st['t_dispatch'] / st['batches'] * 1e3,
+                feed_ms=comb.stats['t_feed'] / comb.stats['windows'] * 1e3,
+                steady_feed_ms=(c2['t_feed'] - c1['t_feed'])
+                / max(c2['windows'] - c1['windows'], 1) * 1e3)
+
+
+def _same(np, what: str, a, b):
+    """Fail unless a and b (arrays, or lists/tuples/dicts of them) are
+    equal bit for bit."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            fail(f'{what}: keys {sorted(a)} vs {sorted(b)}')
+        for k in a:
+            _same(np, f'{what} {k}', a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            fail(f'{what}: {len(a)} vs {len(b)} items')
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(np, f'{what}[{i}]', x, y)
+    elif a is None or isinstance(a, (int, float, str, bool)):
+        if a != b:
+            fail(f'{what}: {a} vs {b}')
+    else:
+        x, y = np.asarray(a), np.asarray(b)
+        if x.dtype != y.dtype or x.shape != y.shape \
+                or x.tobytes() != y.tobytes():
+            fail(f'{what}: graph replay differs from the eager call')
+
+
+def graphs_phase(torch, np, systems):
+    """systems: {name: (cfg, cap, bank)}.  Returns the numbers PERF.md
+    keeps."""
+    phase('25 graphs: replay vs eager')
+    from ld_decode_tpu_torch.comb import batch as CB
+    from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig
+    from ld_decode_tpu_torch.ops import cuda_gather as CG
+    from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    from ld_decode_tpu_torch.tbc import framer as FR
+    from ld_decode_tpu_torch.tbc import fused as FU
+    from ld_decode_tpu_torch.utils import graphs as G
+    res = {}
+    runs = (('NTSC', 'raw'), ('PAL', 'raw'), ('NTSC', 'codec'))
+    for system, pic_mode in runs:
+        cfg, cap, bank = systems[system]
+        p = DECODE_PATHS[system]
+        label = f'{system} decode' + (' --pic-mode codec'
+                                      if pic_mode == 'codec' else '')
+        if pic_mode == 'raw':
+            # the batch call alone: every batch's outputs and chained
+            # scalars, eager against replayed
+            cap_t = FR.to_device_capture(cap, 'cuda')
+            fr = FR.Framer(cfg, bank, capture=cap, batch=16,
+                           nblocks=p['nblocks'], device='cuda', graphs=False)
+            f0, rs0, _ = fr.readfield(None, p['start'])
+            rs0 = int(f0.readsample if f0.readsample >= 0 else rs0)
+            del fr
+            be, pe, _ = _graph_batches(torch, np, FU, G, cfg, bank, cap_t,
+                                       rs0, p['nblocks'], 'eager')
+            bg, pg, cache = _graph_batches(torch, np, FU, G, cfg, bank,
+                                           cap_t, rs0, p['nblocks'], None)
+            _same(np, f'{system} batch outputs', be, bg)
+            if not be[0]['meta_i'][:, 0].all():
+                fail(f'{system}: the chained batches hold invalid fields')
+            print(f'{system} batch call, {GRAPH_BATCHES} chained batches of '
+                  f'16 fields: every output and chained scalar bit-equal '
+                  f'(graphs {cache.counts}, capture '
+                  f'{sum(cache.capture_seconds.values()):.3f} s); one call '
+                  f'eager: {pe["device_ops"]} device ops, '
+                  f'{pe["kernel_launch_calls"]} kernel launch calls, '
+                  f'{pe["host_ms"]:.3f} ms of host time; replayed: '
+                  f'{pg["device_ops"]} device ops, '
+                  f'{pg["kernel_launch_calls"]} kernel launch calls, '
+                  f'{pg["graph_launch_calls"]} graph launch, '
+                  f'{pg["host_ms"]:.3f} ms of host time')
+            if pg['graph_launch_calls'] != 1:
+                fail(f'{system}: the replayed call made '
+                     f'{pg["graph_launch_calls"]} graph launches')
+            res[f'{system} ops'] = dict(eager=pe, graphs=pg)
+            del cap_t
+        e = _graph_decode(torch, np, FR, CR, cfg, bank, cap, p, False,
+                          pic_mode)
+        g = _graph_decode(torch, np, FR, CR, cfg, bank, cap, p, True,
+                          pic_mode)
+        _same(np, f'{label} .tbc frames', e['frames'], g['frames'])
+        _same(np, f'{label} .pcm audio', e['audio'], g['audio'])
+        _same(np, f'{label} fields', e['fields'], g['fields'])
+        if g['counts']['replays'] < 1 or e['k1'] != g['k1']:
+            fail(f'{label}: replays {g["counts"]}, K1 eager {e["k1"]} '
+                 f'graphs {g["k1"]}')
+        print(f'{label}, {p["want"]} frames: .tbc, .pcm and fields '
+              f'bit-equal; graphs {g["counts"]}, capture '
+              f'{g["capture_s"]:.3f} s; K1 {e["k1"]} both ways; '
+              f'{e["batches"]} / {g["batches"]} batches')
+        for name, r in (('eager', e), ('graphs', g)):
+            print(f'  {name:6s}: {r["msas"]:.2f} MSa/s ({r["steady"]:.2f} '
+                  f'after the first frame), t_dispatch '
+                  f'{r["dispatch_ms"]:.3f} ms a batch '
+                  f'({r["steady_dispatch_ms"]:.3f} after the first frame), '
+                  f'peak '
+                  f'{r["peak_mib"]:.1f} MiB allocated, '
+                  f'{r["reserved_mib"]:.1f} MiB reserved')
+        res[label] = {k: {q: r[q] for q in ('msas', 'steady',
+                                            'dispatch_ms',
+                                            'steady_dispatch_ms',
+                                            'peak_mib', 'reserved_mib',
+                                            'counts', 'capture_s')}
+                      for k, r in (('eager', e), ('graphs', g))}
+
+    cfg, cap, bank = systems['NTSC']
+    twice = np.concatenate([cap, cap])
+    e = _graph_chain(torch, np, FR, CR, CG, CB, CombConfig, cfg, bank,
+                     twice, False)
+    g = _graph_chain(torch, np, FR, CR, CG, CB, CombConfig, cfg, bank,
+                     twice, True)
+    _same(np, 'chain RGB48 frames', e['rgbs'], g['rgbs'])
+    _same(np, 'chain line-0 words', e['words'], g['words'])
+    if g['comb']['replays'] < 1 or g['decode']['replays'] < 1 \
+            or (e['k1'], e['k2']) != (g['k1'], g['k2']) \
+            or g['k2'] != 9 * len(g['rgbs']):
+        fail(f'chain: comb {g["comb"]}, decode {g["decode"]}, K1/K2 eager '
+             f'{e["k1"]}/{e["k2"]} graphs {g["k1"]}/{g["k2"]}')
+    print(f'NTSC chain, {GRAPH_CHAIN_FRAMES} frames -> {len(g["rgbs"])} RGB '
+          f'frames: RGB48 and words bit-equal; decode graphs '
+          f'{g["decode"]}, comb graphs {g["comb"]}, capture '
+          f'{g["capture_s"]:.3f} s; K1 {g["k1"]}, K2 {g["k2"]} both ways')
+    for name, r in (('eager', e), ('graphs', g)):
+        print(f'  {name:6s}: {r["fps"]:.2f} RGB frames/s '
+              f'({r["steady_fps"]:.2f} frames pushed a second from frame '
+              f'{GRAPH_CHAIN_STEADY}), t_dispatch {r["dispatch_ms"]:.3f} ms '
+              f'a batch, comb t_feed {r["feed_ms"]:.3f} ms a window '
+              f'({r["steady_feed_ms"]:.3f} from frame {GRAPH_CHAIN_STEADY}), '
+              f'peak {r["peak_mib"]:.1f} MiB allocated, '
+              f'{r["reserved_mib"]:.1f} MiB reserved')
+    res['NTSC chain'] = {k: {q: r[q] for q in ('fps', 'steady_fps',
+                                               'dispatch_ms', 'feed_ms',
+                                               'steady_feed_ms', 'peak_mib',
+                                               'reserved_mib',
+                                               'comb', 'decode',
+                                               'capture_s')}
+                         for k, r in (('eager', e), ('graphs', g))}
+    return res
+
+
 def main():
     if sys.argv[1:2] == ['--mesh-rank']:
         return mesh_rank(sys.argv[2:])
@@ -2550,12 +2859,15 @@ def run(torch, np, work: str):
     sharded = mesh_phase(torch, np, cfg, cap, pcfg, pcap,
                          _subdir(work, 'mesh'))
     from ld_decode_tpu_torch.ops import filters as F
-    codec_k1, _ = codec_phase(torch, np, {
+    systems = {
         'NTSC': (cfg, cap, F.make_demod_bank(cfg, np.complex64,
                                              device='cuda')),
         'PAL': (pcfg, pcap, F.make_demod_bank(pcfg, np.complex64,
-                                              device='cuda'))})
+                                              device='cuda'))}
+    codec_k1, _ = codec_phase(torch, np, systems)
     legacy_comb_phase(torch, np)
+    graphs = graphs_phase(torch, np, systems)
+    print('graphs vs eager', json.dumps(graphs))
     if 'jax' in sys.modules:
         fail('jax was imported')
 

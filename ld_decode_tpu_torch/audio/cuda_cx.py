@@ -33,6 +33,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ld_decode_tpu_torch.utils.graphs import register_counter
+
 # the step's constants, float32 as JAX rounds its weak-typed literals
 FAST_DECAY, FAST_ATTACK = np.float32(.9998), np.float32(.040)
 SLOW_DECAY, SLOW_ATTACK = np.float32(.999985), np.float32(.0020)
@@ -181,3 +183,4 @@ def envelope_lanes(menv: torch.Tensor, starts: Sequence[int], state0,
 
 
 envelope_lanes.launches = 0
+register_counter(envelope_lanes, 'launches')

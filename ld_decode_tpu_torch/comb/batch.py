@@ -21,6 +21,11 @@ frame; dim 3 emits frame 0 as 2D at once, then frame e from the (e-1, e,
 e+1) ring, keeps the last two pending, and `flush()` returns the final
 frame as 2D.
 
+In flow mode the window's device program (`_comb_window_flow`: the flow
+luma, the Farnebäck chain, the comb), after the burst AGC's host loop, is
+replayed as one CUDA graph per window length on the card
+(utils/graphs.py), as the JAX package jits `_comb_window_of`.
+
 The RGB48 output stays an int32 tensor until `collect`, which copies it to
 the host as np.uint16 (np.uint8 with out8).  With codec=True the window's
 RGB crosses instead as the lossless codec's payload (JAX's `_rgb_encode`
@@ -40,7 +45,7 @@ import concurrent.futures
 import os
 import time
 from collections import deque
-from typing import Callable, Deque, List, Optional, Tuple
+from typing import Callable, Deque, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -56,6 +61,7 @@ from ld_decode_tpu_torch.utils import log
 from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
 from ld_decode_tpu_torch.utils.device import to_host_async
+from ld_decode_tpu_torch.utils.graphs import GraphCache, as_cache
 
 # the pyramid cap keeps both dims of the 252x840 field images >= 32 px,
 # which at pyr_scale 0.5 caps the requested 4 levels to 2
@@ -66,15 +72,18 @@ def _crop(rgb: torch.Tensor, cfg: CombConfig) -> torch.Tensor:
     return rgb if cfg.wide else rgb[..., 78:78 + 744, :]
 
 
-def _comb_window_of(win: torch.Tensor, flow0: torch.Tensor, ab0: float,
-                    cfg: CombConfig):
+def _comb_window_flow(win: torch.Tensor, flow0: torch.Tensor,
+                      levels: torch.Tensor, cfg: CombConfig):
     """win: (M, Y, X).  Emits frames win[0..M-2], each against its
-    successor, chaining the per-field flow and the burst AGC.  Returns
-    (rgb, words, flow, ab)."""
+    successor, chaining the per-field flow; `levels` are the AGC levels of
+    win[:-1] (`burst_levels`, whose host loop synchronises, runs before).
+    The JAX package's `_comb_window_of` less the AGC: the flow luma, the
+    field images, the Farnebäck chain and its confidence maps, the comb.
+    It reads nothing from the host, so NTSCCombBatch replays it as one CUDA
+    graph per window length.  Returns (rgb, words, flow)."""
     lum = flow_luma(win, cfg)
     pics = field_pics(lum)                         # (M, 2, 252, 840)
     cur, nxt = win[:-1], win[1:]
-    levels, ab = burst_levels(cur, ab0, cfg)
     flow = flow0
     combk2 = []
     for e in range(win.shape[0] - 1):
@@ -84,7 +93,7 @@ def _comb_window_of(win: torch.Tensor, flow0: torch.Tensor, ab0: float,
         combk2.append(flow_confidence(flow, cfg.of_3dcore, cfg.of_3drange))
     rgb, _ = _frame_core(cur, nxt, nxt, levels, cfg,
                          combk2_in=torch.stack(combk2))
-    return _crop(rgb, cfg), cur[:, 0, :16], flow, ab
+    return _crop(rgb, cfg), cur[:, 0, :16], flow
 
 
 def _comb_window_ring(win: torch.Tensor, ab0: float, cfg: CombConfig):
@@ -195,13 +204,18 @@ class NTSCCombBatch(_RgbCodecMixin):
     the streaming NTSCComb."""
 
     def __init__(self, cfg: CombConfig = CombConfig(), out8: bool = False,
-                 device=DEFAULT_DEVICE, codec: bool = False):
+                 device=DEFAULT_DEVICE, codec: bool = False,
+                 graphs: Union[bool, GraphCache] = True):
         """codec=True sends the RGB through the lossless codec (module
-        docstring)."""
+        docstring).  graphs=True (the default) replays the flow mode's
+        window program (`_comb_window_flow`) as one CUDA graph per window
+        length on the card (utils/graphs.py; eager on the CPU);
+        graphs=False runs it eagerly; a GraphCache is used as given."""
         if cfg.has_debug:
             raise ValueError('debug surfaces need the streaming NTSCComb')
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.graphs = as_cache(graphs, self.device)
         self._pend: Optional[torch.Tensor] = None   # (k, Y, X) device
         self._flow = torch.zeros((2, _CYSIZE, _CXSIZE, 2),
                                  dtype=torch.float32, device=self.device)
@@ -244,8 +258,16 @@ class NTSCCombBatch(_RgbCodecMixin):
             return None
         self._pend = dev[-keep:]
         if cfg.opticalflow:
-            rgb, words, self._flow, self.aburstlev = _comb_window_of(
-                dev, self._flow, self.aburstlev, cfg)
+            levels, self.aburstlev = burst_levels(dev[:-1], self.aburstlev,
+                                                  cfg)
+            # replayed, the outputs are the graph's static tensors: the
+            # RGB and the words are copied out (or encoded) next on the
+            # stream, and the flow carry is read only by the next window's
+            # copy into its static input, before that window's replay
+            rgb, words, self._flow = self.graphs(
+                ('comb_window_flow', cfg),
+                lambda w, f, lv: _comb_window_flow(w, f, lv, cfg),
+                (dev, self._flow, levels))
         else:
             rgb, words, self.aburstlev = _comb_window_ring(
                 dev, self.aburstlev, cfg)

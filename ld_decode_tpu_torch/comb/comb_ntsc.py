@@ -40,6 +40,7 @@ import torch.nn.functional as F
 
 from ld_decode_tpu_torch.comb.optflow import calc_optical_flow_farneback
 from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
+from ld_decode_tpu_torch.utils.device import constant
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
 
 IN_Y, IN_X = 525, 910
@@ -147,8 +148,7 @@ def _causal_fir(x: torch.Tensor, b: np.ndarray, start: int) -> torch.Tensor:
     are flipped; float32 throughout (TF32 is off package-wide)."""
     xm = torch.where(_col_mask(start, IN_X, x.device), x, 0.0)
     nb = len(b)
-    w = torch.as_tensor(np.ascontiguousarray(b[::-1]), dtype=x.dtype,
-                        device=x.device).reshape(1, 1, nb)
+    w = constant(b[::-1], x.dtype, x.device).reshape(1, 1, nb)
     rows = F.pad(xm.reshape(-1, 1, IN_X), (nb - 1, 0))
     return F.conv1d(rows, w).reshape(x.shape)
 
@@ -639,8 +639,9 @@ def field_pics(lum: torch.Tensor) -> torch.Tensor:
     float32."""
     out = []
     for field in range(2):
-        rows = np.clip(23 + field + 2 * np.arange(_CYSIZE), 0, IN_Y - 1)
-        pic = lum[..., rows, 70:70 + _CXSIZE]
+        rows = constant(np.clip(23 + field + 2 * np.arange(_CYSIZE), 0,
+                                IN_Y - 1), torch.int64, lum.device)
+        pic = lum[..., 70:70 + _CXSIZE].index_select(-2, rows)
         out.append(torch.clamp(pic, 0, 65535).to(torch.int32))
     return torch.stack(out, dim=-3).to(torch.float32)
 

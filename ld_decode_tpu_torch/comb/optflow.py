@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ld_decode_tpu_torch.ops.gather import take_along_axis
+from ld_decode_tpu_torch.utils.device import constant
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
 
 # ---------------------------------------------------------------------------
@@ -67,7 +68,7 @@ def _sep_correlate(img: torch.Tensor, kerns, axis: int) -> torch.Tensor:
     pad = (0, 0, n, n) if axis == 0 else (n, n, 0, 0)
     x = F.pad(img[:, None], pad, mode='replicate')[:, 0]
     win = x.unfold(1 + axis, ks.shape[0], 1)            # (B, H, W, K)
-    out = win @ torch.as_tensor(ks, dtype=img.dtype, device=img.device)
+    out = win @ constant(ks, img.dtype, img.device)
     return out[..., 0] if single else out
 
 
@@ -111,6 +112,12 @@ def _border_scale(h: int, w: int) -> np.ndarray:
     iy = np.minimum(np.minimum(np.arange(h), h - 1 - np.arange(h)), _BORDER)
     ix = np.minimum(np.minimum(np.arange(w), w - 1 - np.arange(w)), _BORDER)
     return (ramp[iy][:, None] * ramp[ix][None, :]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _border_scale_dev(h: int, w: int, device: str) -> torch.Tensor:
+    """`_border_scale` on the device, copied once per level shape."""
+    return torch.from_numpy(_border_scale(h, w)).to(device)
 
 
 def _quad_expand(R: torch.Tensor) -> torch.Tensor:
@@ -310,7 +317,7 @@ def farneback(img0: torch.Tensor, img1: torch.Tensor,
 
         R0 = poly_expansion(i0, poly_n, poly_sigma)
         R1q = _quad_expand(poly_expansion(i1, poly_n, poly_sigma))
-        bscale = torch.from_numpy(_border_scale(hk, wk)).to(img0.device)
+        bscale = _border_scale_dev(hk, wk, str(img0.device))
 
         M = _update_matrices(R0, R1q, flow, bscale)
         for it in range(iterations):

@@ -20,7 +20,9 @@ Two paths, one launch either way:
     unaligned views).
 
 Each launch adds one to ``take_along_axis.launches``; a launch on the row
-path also adds one to ``take_along_axis.row_launches``.  Callers go
+path also adds one to ``take_along_axis.row_launches``; a launch captured
+in a CUDA graph is counted on each replay instead (utils/graphs.py).
+Callers go
 through ops/gather.py::take_along_axis, which sends CPU tensors to the
 plain version.
 """
@@ -30,6 +32,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from ld_decode_tpu_torch.utils.graphs import register_counter
 
 _LIB = None
 
@@ -120,3 +124,4 @@ def take_along_axis(op: torch.Tensor, idx: torch.Tensor,
 
 take_along_axis.launches = 0
 take_along_axis.row_launches = 0
+register_counter(take_along_axis, 'launches', 'row_launches')

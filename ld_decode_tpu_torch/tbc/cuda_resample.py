@@ -19,7 +19,9 @@ Dispatch follows the tensor's device: a CPU tensor takes the plain PyTorch
 version (`resample_lines_batch_plain`); a CUDA tensor launches the kernel
 or raises.  Each launch adds one to ``resample_lines_batch.launches``; a
 launch restricted to a column window (ncols < outwidth, the burst window)
-also adds one to ``resample_lines_batch.window_launches``.
+also adds one to ``resample_lines_batch.window_launches``.  A launch
+captured in a CUDA graph is counted on each replay instead
+(utils/graphs.py).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Optional
 import torch
 
 from ld_decode_tpu_torch.tbc.resample import downscale_lines_split
+from ld_decode_tpu_torch.utils.graphs import register_counter
 
 _LIB = None
 
@@ -153,3 +156,4 @@ def resample_lines_batch(data: torch.Tensor, lli: torch.Tensor,
 
 resample_lines_batch.launches = 0
 resample_lines_batch.window_launches = 0
+register_counter(resample_lines_batch, 'launches', 'window_launches')

@@ -11,13 +11,14 @@ or `FieldDecoder.process_resident` on a device-resident capture.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
 from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
+from ld_decode_tpu_torch.utils.graphs import GraphCache
 from ld_decode_tpu_torch.utils.params import DecoderConfig
 from ld_decode_tpu_torch.ops import demod as D
 from ld_decode_tpu_torch.ops.filters import DemodBank
@@ -64,7 +65,8 @@ class Framer:
                  despackle: bool = False, segment_samples: int = 0,
                  rot_level: float = 40.0, flip_fields: bool = False,
                  bff: bool = False, device=DEFAULT_DEVICE,
-                 fetch_picture: bool = True, pic_mode: str = 'auto'):
+                 fetch_picture: bool = True, pic_mode: str = 'auto',
+                 graphs: Union[bool, GraphCache] = True):
         """Either `loader` (file reads) or `capture` (the whole capture kept
         on the device) must be given.  The parameters up to `nblocks` take
         the JAX package's positions; one default differs from it on
@@ -87,7 +89,11 @@ class Framer:
         frame as a device tensor (int32) for the comb.  pic_mode ('auto',
         'codec' or 'raw') is how a fetched picture crosses to the host
         (tbc/pipeline.py): 'auto' measures the device-to-host rate once
-        and takes the raw copy on the card and on the CPU.
+        and takes the raw copy on the card and on the CPU.  graphs=True
+        (the default; the JAX package always jits) replays each batch call
+        as a CUDA graph on the card (utils/graphs.py; eager on the CPU);
+        graphs=False runs it eagerly, for comparisons; a GraphCache is
+        passed to the prefetcher as given.
 
         batch=1: one field a call, in order (the JAX package's default): a
         loader's window of each field is read and decoded by
@@ -118,7 +124,8 @@ class Framer:
             self.prefetcher = FieldPrefetcher(self.decoder, self.capture_dev,
                                               batch,
                                               fetch_picture=fetch_picture,
-                                              pic_mode=pic_mode)
+                                              pic_mode=pic_mode,
+                                              graphs=graphs)
         if self.prefetcher is not None and self.capture_dev is None:
             if segment_samples <= 0:
                 segment_samples = 256 << 20      # 1 GiB of float32

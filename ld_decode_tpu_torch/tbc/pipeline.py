@@ -27,6 +27,16 @@ the consistency gate (counted in `pic_raw_fallback`).  'auto' (the
 default) picks by the rule of the JAX package: the codec where the
 measured device-to-host rate is below what its encode costs per byte it
 saves (RAW_PIC_MBPS), else raw.
+
+The batch call is the JAX package's jitted program: on the card it runs
+through a `utils/graphs.py::GraphCache`, keyed by its static arguments and
+the resident capture, so a key's first call runs eagerly, its second is
+captured as a CUDA graph and every later one copies (start0, offset0,
+mtf) into the graph's static inputs and replays it.  A replay's outputs
+are the graph's static tensors: the host copies queue right after it,
+and what stays on the device (the chain mode's pictures, the codec's
+dense buffers and raw fallback) is cloned.  `set_capture` drops the
+graphs, which read the old segment in place.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ import os
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -47,6 +57,7 @@ from ld_decode_tpu_torch.tbc import codec as CODEC
 from ld_decode_tpu_torch.tbc import fused as FU
 from ld_decode_tpu_torch.tbc.field import FieldDecoder, FieldResult
 from ld_decode_tpu_torch.utils.device import to_host_async
+from ld_decode_tpu_torch.utils.graphs import GraphCache, as_cache
 
 
 @dataclass
@@ -129,15 +140,19 @@ class FieldPrefetcher:
 
     def __init__(self, decoder: FieldDecoder, capture: torch.Tensor,
                  batch: int = 8, fetch_picture: bool = True,
-                 pic_mode: str = 'auto'):
+                 pic_mode: str = 'auto',
+                 graphs: Union[bool, GraphCache] = True):
         """fetch_picture=False is the chain mode: each FieldResult carries
         its picture as `dev_picture` (the batch tensor and its index) and
         no picture is copied to the host.  pic_mode ('auto', 'codec' or
         'raw', see the module docstring) applies where the picture is
-        fetched."""
+        fetched.  graphs=True (the default) replays each batch call as a
+        CUDA graph on the card (module docstring; eager on the CPU);
+        graphs=False runs it eagerly; a GraphCache is used as given."""
         if pic_mode not in ('auto', 'codec', 'raw'):
             raise ValueError(f'pic_mode {pic_mode!r}')
         self.decoder = decoder
+        self.graphs = as_cache(graphs, decoder.device)
         self.fetch_picture = fetch_picture
         self.pic_mode = pic_mode
         self._codec_on = None          # resolved at the first dispatch
@@ -181,8 +196,11 @@ class FieldPrefetcher:
                     valid_len: Optional[int] = None):
         """Swap in a new resident segment (absolute file offset `base`).
         The in-flight chain is relative to the old buffer, so it flushes;
-        the recently-consumed cache stays valid (absolute positions)."""
+        the recently-consumed cache stays valid (absolute positions).  The
+        graphs read the old buffer in place: they are dropped with their
+        pools."""
         self.flush()
+        self.graphs.clear()
         self.capture = capture
         self.base = int(base)
         self.valid_len = (int(valid_len) if valid_len is not None
@@ -221,12 +239,33 @@ class FieldPrefetcher:
         if self._mtf_dev[0] != mtf_level:
             self._mtf_dev = (mtf_level, torch.full(
                 (), mtf_level, dtype=torch.float32, device=dec.device))
-        out, nso, noo = FU.field_pipeline_batch(
-            self.capture, start0, offset0, self._mtf_dev[1], dec.bank,
-            dec.cfg, dec.nblocks, n_audio1, self.batch, self.field_pitch,
-            colorlevel=dec.colorlevel, colorphase=dec.colorphase,
-            valid_len=self.valid_len,
-            codec=self.fetch_picture and self._use_codec())
+        codec = self.fetch_picture and self._use_codec()
+        # the static arguments; the capture is keyed as a tensor read
+        key = ('field_pipeline_batch', id(dec.bank), dec.cfg, dec.nblocks,
+               n_audio1, self.batch, self.field_pitch, dec.colorlevel,
+               dec.colorphase, self.valid_len, codec)
+
+        def call(s0, o0, mtf):
+            return FU.field_pipeline_batch(
+                self.capture, s0, o0, mtf, dec.bank, dec.cfg, dec.nblocks,
+                n_audio1, self.batch, self.field_pitch,
+                colorlevel=dec.colorlevel, colorphase=dec.colorphase,
+                valid_len=self.valid_len, codec=codec)
+
+        out, nso, noo = self.graphs(key, call,
+                                    (start0, offset0, self._mtf_dev[1]),
+                                    reads=(self.capture,))
+        if self.graphs.aliased:
+            # replayed, the outputs are the graph's static tensors, which
+            # the next replay overwrites.  The host copies queued next are
+            # stream-ordered, and the chained scalars are read only by the
+            # next dispatch's copy into its static inputs; the pictures
+            # and dense buffers that stay on the device outlive the next
+            # replay, so they are cloned
+            if codec or not self.fetch_picture:
+                for k in ('picture', 'dense', 'dense_q'):
+                    if k in out:
+                        out[k] = out[k].clone()
         self._flight.append(_InFlight(out, nso, noo, mtf_level,
                                       self.fetch_picture, self._prefixes))
         self.stats['batches'] += 1

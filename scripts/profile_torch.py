@@ -8,7 +8,16 @@ chain's dim-3 comb (NTSC: optical flow; PAL: the temporal ring), and with
 (NTSCComb dim 3 with flow, or PALComb dim 3), under torch.profiler.
 
     python3 scripts/profile_torch.py [--pal] [--frames 16] [--comb]
-                                     [--stream] [--trace out.json]
+                                     [--stream] [--graphs]
+                                     [--trace out.json]
+
+The decode and the comb window run as the user's path runs them: each
+batch call and each NTSC flow-comb window replayed as a CUDA graph
+(utils/graphs.py).  --graphs profiles each of those windows twice, eager
+(graphs=False) and then replayed, and adds the host's time per call
+(the prefetcher's t_dispatch a batch, the comb's t_feed a window) and its
+launch calls (kernel launches and graph launches) beside the device's
+busy and idle share.
 
 Prints the card's name and power limit, then for each profiled window its
 wall time, the device's busy and idle share (summed kernel and copy time
@@ -71,11 +80,17 @@ def report(label, wall, events, units, unit_name):
     dev = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in dev)
     launches = sum(e.count for e in dev)
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    kcalls = sum(e.count for e in host if 'LaunchKernel' in e.key)
+    gcalls = sum(e.count for e in host if 'GraphLaunch' in e.key)
     print(f'== {label}: {wall:.4f} s wall, {units} {unit_name}s')
     print(f'device busy {busy_us / 1e3:.2f} ms of {wall * 1e3:.2f} ms wall: '
           f'idle share {1 - busy_us / 1e6 / wall:.4f}')
     print(f'device ops {launches} ({launches / max(units, 1):.0f} per '
           f'{unit_name}), mean {busy_us / max(launches, 1):.2f} us each')
+    print(f'host launch calls: {kcalls} kernel launches '
+          f'({kcalls / max(units, 1):.0f} per {unit_name}), {gcalls} graph '
+          f'launches')
     for kernel, names in HAND_KERNELS:
         ks = [e for e in dev if any(n in e.key for n in names)]
         n = sum(e.count for e in ks)
@@ -107,6 +122,9 @@ def main():
     ap.add_argument('--stream', action='store_true',
                     help='also profile one field of the sequential decode '
                          'and one frame of the streaming comb')
+    ap.add_argument('--graphs', action='store_true',
+                    help='profile the decode and comb windows eager '
+                         '(graphs=False) and then replayed as CUDA graphs')
     ap.add_argument('--trace', default=None,
                     help='write a Chrome trace of the decode window here')
     args = ap.parse_args()
@@ -121,13 +139,30 @@ def main():
         ('PAL', 'palbars', 56, 2560 * 14) if args.pal
         else ('NTSC', 'ramp', 52, 33046))
     cfg = DecoderConfig(system=system, freq_mhz=40.0)
-    Y, X = cfg.sys.frame_lines, cfg.sys.outlinelen
     nwarm = 16
     cap = E.encode_frames(cfg, nwarm + args.frames + 8,
                           E.EncodeSpec(pattern=pattern, cav_start_frame=900))
     bank = F.make_demod_bank(cfg, np.complex64, device='cuda')
+    modes = (False, True) if args.graphs else (True,)
+    for graphs in modes:
+        fr, sample = decode_window(args, cfg, cap, bank, nblocks, start,
+                                   nwarm, graphs)
+    if args.comb:
+        for graphs in modes:
+            comb_window(args, cfg, cap, bank, nblocks, start, graphs)
+    if args.stream:
+        stream_windows(cfg, cap, bank, nblocks, start, fr, sample)
+
+
+def _mode(graphs: bool) -> str:
+    return 'graphs' if graphs else 'eager'
+
+
+def decode_window(args, cfg, cap, bank, nblocks, start, nwarm, graphs):
+    """args.frames frames of the decode after nwarm frames of warm-up (the
+    graph captured), profiled; returns the Framer and its next sample."""
     fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=nblocks,
-                   device='cuda')
+                   device='cuda', graphs=graphs)
     rv = fr.readframe(None, start, True)
     for _ in range(nwarm):
         rv = fr.readframe(None, rv[2], False)
@@ -142,42 +177,51 @@ def main():
                 sys.exit('capture ended inside the profiled window')
 
     wall, events = profiled(decode, args.trace)
-    batches = fr.prefetcher.stats['batches'] - stats0['batches']
+    st = fr.prefetcher.stats
+    batches = st['batches'] - stats0['batches']
     spf = cfg.freq_hz / cfg.sys.fps
-    print(f'{system} decode: {args.frames} frames, '
-          f'{args.frames * spf / wall / 1e6:.2f} MSa/s under the profiler')
-    report('decode window', wall, events, batches, 'batch')
+    print(f'{cfg.system} decode ({_mode(graphs)}): {args.frames} frames, '
+          f'{args.frames * spf / wall / 1e6:.2f} MSa/s under the profiler; '
+          f't_dispatch {(st["t_dispatch"] - stats0["t_dispatch"]) / max(batches, 1) * 1e3:.3f} '
+          f'ms a batch; graphs {fr.prefetcher.graphs.counts}')
+    report(f'decode window ({_mode(graphs)})', wall, events, batches,
+           'batch')
+    return fr, state['rv'][2]
 
-    if args.comb:
-        # 24 woven device frames of the chain, pushed through the chain's
-        # window loop (windows of 8, none left in flight): the first two
-        # windows warm the comb (NTSC: frame 0 dropped, the flow carry
-        # seeded; PAL: frame 0 combed 2D, two frames left pending; from
-        # the second window on every window has the same shape, so its
-        # FFT plans and buffers exist), the third is profiled
-        chain = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=nblocks,
-                          device='cuda', fetch_picture=False)
-        frames, s = [], start
-        for i in range(24):
-            rv = chain.readframe(None, s, i == 0)
-            frames.append(rv[0].reshape(Y, X))
-            s = rv[2]
-        comb = PALCombBatch(CombPALConfig(dim=3), device='cuda') if args.pal \
-            else NTSCCombBatch(CombConfig(dim=3), device='cuda')
-        out = []
-        windows = CombWindows(comb, 8, 0, lambda rgb, words: out.append(rgb))
-        for f in frames[:16]:
-            windows.push(f)
-        out.clear()
-        wall, events = profiled(lambda: [windows.push(f)
-                                         for f in frames[16:]])
-        n = len(out)
-        print(f'{system} comb: {n} RGB frames, {n / wall:.2f} frames/s '
-              f'under the profiler')
-        report('comb window', wall, events, n, 'RGB frame')
 
-    if args.stream:
-        stream_windows(cfg, cap, bank, nblocks, start, fr, state['rv'][2])
+def comb_window(args, cfg, cap, bank, nblocks, start, graphs):
+    """32 woven device frames of the chain, pushed through the chain's
+    window loop (windows of 8, none left in flight): the first three
+    windows warm the comb (NTSC: frame 0 dropped, the flow carry seeded,
+    the 9-frame window's graph warmed up and captured; PAL: frame 0
+    combed 2D, two frames left pending; from the second window on every
+    window has the same shape, so its FFT plans and buffers exist), the
+    fourth is profiled (NTSC: a replay)."""
+    Y, X = cfg.sys.frame_lines, cfg.sys.outlinelen
+    chain = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=nblocks,
+                      device='cuda', fetch_picture=False, graphs=graphs)
+    frames, s = [], start
+    for i in range(32):
+        rv = chain.readframe(None, s, i == 0)
+        frames.append(rv[0].reshape(Y, X))
+        s = rv[2]
+    comb = PALCombBatch(CombPALConfig(dim=3), device='cuda') if args.pal \
+        else NTSCCombBatch(CombConfig(dim=3), device='cuda', graphs=graphs)
+    out = []
+    windows = CombWindows(comb, 8, 0, lambda rgb, words: out.append(rgb))
+    for f in frames[:24]:
+        windows.push(f)
+    out.clear()
+    st0 = dict(comb.stats)
+    wall, events = profiled(lambda: [windows.push(f)
+                                     for f in frames[24:]])
+    n = len(out)
+    feed = comb.stats['t_feed'] - st0['t_feed']
+    print(f'{cfg.system} comb ({_mode(graphs)}): {n} RGB frames, '
+          f'{n / wall:.2f} frames/s under the profiler; t_feed '
+          f'{feed * 1e3:.3f} ms a window; graphs '
+          f'{getattr(comb, "graphs", None) and comb.graphs.counts}')
+    report(f'comb window ({_mode(graphs)})', wall, events, n, 'RGB frame')
 
 
 def stream_windows(cfg, cap, bank, nblocks, start, fr, sample):

@@ -51,7 +51,8 @@ def test_port_sources_import_no_jax():
             'ld_decode_tpu_torch/utils/native_build.py',
             'ld_decode_tpu_torch/tbc/codec.py',
             'ld_decode_tpu_torch/tbc/native_codec.py',
-            'ld_decode_tpu_torch/comb/comb_pal_legacy.py'} <= names
+            'ld_decode_tpu_torch/comb/comb_pal_legacy.py',
+            'ld_decode_tpu_torch/utils/graphs.py'} <= names
     for path in PORT_FILES:
         with open(path) as f:
             m = FORBIDDEN.search(f.read())
@@ -182,6 +183,13 @@ assert route == 'native' and (dec == img).all()
 rgb = legacy.LegacyPALComb(legacy.LegacyPALConfig(), device='cpu').process(
     np.full((610, 1052), 20000, np.uint16))
 assert rgb.shape == (576, 974, 3) and rgb.dtype == np.uint16
+# the graph cache's static-buffer protocol, emulated on the CPU
+from ld_decode_tpu_torch.utils import graphs
+cache = graphs.GraphCache('cpu', 'emulate')
+outs = [cache('k', lambda x: x + 1, (torch.full((2,), float(v)),))
+        for v in range(3)]
+assert cache.counts == {'eager_warmups': 1, 'captures': 1, 'replays': 2}
+assert float(outs[1][0]) == float(outs[2][0]) == 3.0
 assert not [m for m, mod in sys.modules.items() if mod is not None
             and (m in ('jax', 'ld_decode_tpu')
                  or m.startswith(('jax.', 'ld_decode_tpu.')))]
