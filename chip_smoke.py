@@ -123,7 +123,25 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      RGB48 frames and words bit-equal, K1 and K2 launches equal; the
      warm-ups, captures, replays and capture seconds, t_dispatch a batch,
      MSa/s or RGB frames/s (whole runs and steady state) and peak device
-     memory both ways.
+     memory both ways;
+ 26. the sequential paths' graphs, eager then graphed in one call: the
+     --batch 1 decode (NTSC and PAL .lds, Framer(loader, batch=1)) and the
+     resident sequential decode (Framer(capture, batch=1): field_analyze
+     and field_finish), frames, audio and every field's line locations,
+     burst levels and VBI bit-equal, K1 launches equal; FieldDecoder's
+     process and process_resident called with other window starts,
+     mtf_level and audio_offset between calls of one key, each call
+     bit-equal to eager's; lddecode_torch.py
+     --batch 1 with --no-graphs and the default, .tbc and .pcm equal; the
+     streaming NTSC comb (dim 3 with flow over frames of phase 4's
+     capture; dim 2 with -D and -l), RGB48, words and extras bit-equal,
+     K2 launches equal; ldview_torch.py's main eager (the CLI) and with
+     graphs=True, the same image; MSa/s
+     (whole runs and after the first frame), RGB frames/s, device
+     operations and launch calls a field and a frame, host ms a call,
+     capture seconds a key and peak device memory both ways;
+     field_finish_batch on a 16-field NTSC and PAL batch on the card
+     against the CPU (phase 5's budgets), its ms a batch and K1 launches.
 Every decode and chain phase runs with the default graphs on.
 The line before the last is the kernel JSON; the last line is the result.
 """
@@ -2606,7 +2624,7 @@ def _graph_decode(torch, np, FR, CR, cfg, bank, cap, p, graphs, pic_mode):
                 dispatch_ms=st['t_dispatch'] / st['batches'] * 1e3,
                 steady_dispatch_ms=(st['t_dispatch'] - st1['t_dispatch'])
                 / max(st['batches'] - st1['batches'], 1) * 1e3,
-                batches=st['batches'],
+                batches=st['batches'], seq_fallback=st['seq_fallback'],
                 peak_mib=torch.cuda.max_memory_allocated() / 2**20,
                 reserved_mib=torch.cuda.max_memory_reserved() / 2**20,
                 counts=dict(fr.prefetcher.graphs.counts),
@@ -2748,7 +2766,9 @@ def graphs_phase(torch, np, systems):
         print(f'{label}, {p["want"]} frames: .tbc, .pcm and fields '
               f'bit-equal; graphs {g["counts"]}, capture '
               f'{g["capture_s"]:.3f} s; K1 {e["k1"]} both ways; '
-              f'{e["batches"]} / {g["batches"]} batches')
+              f'{e["batches"]} / {g["batches"]} batches; sequential '
+              f'fallback fields (eager both ways) {e["seq_fallback"]} / '
+              f'{g["seq_fallback"]}')
         for name, r in (('eager', e), ('graphs', g)):
             print(f'  {name:6s}: {r["msas"]:.2f} MSa/s ({r["steady"]:.2f} '
                   f'after the first frame), t_dispatch '
@@ -2761,7 +2781,8 @@ def graphs_phase(torch, np, systems):
                                             'dispatch_ms',
                                             'steady_dispatch_ms',
                                             'peak_mib', 'reserved_mib',
-                                            'counts', 'capture_s')}
+                                            'counts', 'capture_s',
+                                            'seq_fallback')}
                       for k, r in (('eager', e), ('graphs', g))}
 
     cfg, cap, bank = systems['NTSC']
@@ -2797,6 +2818,403 @@ def graphs_phase(torch, np, systems):
                                                'capture_s')}
                          for k, r in (('eager', e), ('graphs', g))}
     return res
+
+
+# phase 26: the sequential paths' graphs.  SEQ_GRAPH_FRAMES frames of each
+# --batch 1 decode a run, timed whole, after the first frame (whose fields
+# warm up every key) and from frame SEQ_GRAPH_STEADY on (every key of both
+# line counts captured before it); STREAM_GRAPH_FRAMES frames of phase 4's
+# capture through the streaming comb, timed whole and from
+# STREAM_GRAPH_STEADY on (every key replayed from there); the 16-field
+# field_finish_batch timed with CUDA events, median of FINISH_REPS
+SEQ_GRAPH_FRAMES, SEQ_GRAPH_STEADY = 8, 3
+STREAM_GRAPH_FRAMES, STREAM_GRAPH_STEADY = 12, 6
+FINISH_BATCH, FINISH_REPS = 16, 5
+# (mtf_level, audio_offset) of the values case's calls
+SEQ_VALUE_CALLS = ((1.0, 0.0), (0.5, 1e-4), (0.8, 2e-5), (0.0, 7e-5),
+                   (1.0, 0.0), (0.3, 4e-5), (0.9, 1e-5))
+
+
+def _seq_run(torch, np, FR, CR, cfg, bank, source, p, graphs, n):
+    """n frames of Framer(batch=1) over `source` (a loader's path, or the
+    capture array for the resident decode), graphs on or off: frames,
+    audio, every field's outputs, K1 launches, MSa/s whole and after the
+    first frame, one more field's device ops and launch calls under the
+    profiler and the untraced host ms of 3 more, peak memory, the cache's
+    counts and capture seconds a key."""
+    from ld_decode_tpu_torch.io import loaders as L
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CR.resample_lines_batch.launches = 0
+    resident = not isinstance(source, str)
+    kw = dict(capture=source) if resident \
+        else dict(loader=L.loader_for_path(source))
+    fr = FR.Framer(cfg, bank, batch=1, nblocks=p['nblocks'], device='cuda',
+                   graphs=graphs, **kw)
+    fd = None if resident else open(source, 'rb')
+    try:
+        frames, audio, fields = [], [], []
+        sample = p['start']
+        t0 = time.perf_counter()
+        for i in range(n):
+            rv = fr.readframe(fd, sample, i == 0)
+            if rv[0] is None:
+                fail(f'{cfg.system} batch 1 (graphs={graphs}) ended at '
+                     f'frame {i}')
+            if i == 0:
+                t1 = time.perf_counter()
+            if i == SEQ_GRAPH_STEADY - 1:
+                t_settled = time.perf_counter()
+            frames.append(rv[0])
+            audio.append(rv[1])
+            fields += [(f.readsample, f.linelocs, f.burstlevel, f.vbi,
+                        f.linecode) for f in rv[3]]
+            sample = rv[2]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k1 = CR.resample_lines_batch.launches
+        state = [sample]
+
+        def field():
+            f, _, state[0] = fr.readfield(fd, state[0])
+            if f is None:
+                fail(f'{cfg.system} batch 1: no field to profile')
+
+        prof = _launch_profile(torch, field)
+        t3 = time.perf_counter()
+        for _ in range(3):
+            field()
+        prof['host_ms'] = (time.perf_counter() - t3) / 3 * 1e3
+    finally:
+        if fd is not None:
+            fd.close()
+    spf = cfg.freq_hz / cfg.sys.fps
+    caps = list(fr.graphs.capture_seconds.values())
+    return dict(frames=frames, audio=audio, fields=fields, k1=k1,
+                msas=n * spf / (t2 - t0) / 1e6,
+                steady=(n - 1) * spf / (t2 - t1) / 1e6,
+                settled=(n - SEQ_GRAPH_STEADY) * spf / (t2 - t_settled) / 1e6,
+                prof=prof, key_s=_key_seconds(fr.graphs),
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                reserved_mib=torch.cuda.max_memory_reserved() / 2**20,
+                counts=dict(fr.graphs.counts), keys=len(caps),
+                capture_s=(min(caps), max(caps)) if caps else (0.0, 0.0))
+
+
+def _stream_run(torch, np, TC, CG, cfg, frames, graphs):
+    """The streaming NTSCComb over `frames`, graphs on or off: per emitted
+    frame the RGB48, words and extras; K2 launches; RGB frames/s whole
+    and from STREAM_GRAPH_STEADY on; one more frame's device ops and launch
+    calls and the untraced host ms of the last frames; peak memory; the
+    cache's counts and capture seconds a key."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CG.take_along_axis.launches = 0
+    comb = TC.NTSCComb(cfg, device='cuda', graphs=graphs)
+    out = []
+
+    def push(f):
+        rgb = comb.process(f)
+        if rgb is not None:
+            out.append((rgb, comb.last_frame_words.copy(),
+                        comb.last_debug2d, comb.last_debugline))
+
+    t0 = time.perf_counter()
+    for i, f in enumerate(frames):
+        if i == STREAM_GRAPH_STEADY:
+            t1, n1 = time.perf_counter(), len(out)
+        push(f)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    k2, emitted = CG.take_along_axis.launches, len(out)
+    prof = _launch_profile(torch, lambda: push(frames[-1]))
+    t3 = time.perf_counter()
+    for f in frames[-3:]:
+        push(f)
+    prof['host_ms'] = (time.perf_counter() - t3) / 3 * 1e3
+    caps = list(comb.graphs.capture_seconds.values())
+    return dict(out=out, k2=k2, emitted=emitted, key_s=_key_seconds(
+                    comb.graphs),
+                fps=emitted / (t2 - t0),
+                steady=(emitted - n1) / (t2 - t1), prof=prof,
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                reserved_mib=torch.cuda.max_memory_reserved() / 2**20,
+                counts=dict(comb.graphs.counts), keys=len(caps),
+                capture_s=(min(caps), max(caps)) if caps else (0.0, 0.0))
+
+
+def _key_seconds(cache) -> dict:
+    """Capture seconds by key name (the largest where a name has several
+    keys, e.g. one a line count)."""
+    out = {}
+    for full, sec in cache.capture_seconds.items():
+        name = str(full[0][0])
+        out[name] = max(out.get(name, 0.0), sec)
+    return out
+
+
+def _both_ways(name, e, g, rate, unit):
+    print(f'{name}: graphs {g["counts"]}, {g["keys"]} keys captured in '
+          f'{g["capture_s"][0]:.3f}-{g["capture_s"][1]:.3f} s each '
+          f'({", ".join(f"{k} {v:.3f}" for k, v in g["key_s"].items())})')
+    for label, r in (('eager', e), ('graphs', g)):
+        pr = r['prof']
+        when = (f'after the first frame, {r["settled"]:.2f} from frame '
+                f'{SEQ_GRAPH_STEADY}' if unit == 'MSa/s'
+                else f'from frame {STREAM_GRAPH_STEADY}')
+        print(f'  {label:6s}: {r[rate]:.2f} {unit} ({r["steady"]:.2f} '
+              f'{when}), '
+              f'one more call: {pr["device_ops"]} device ops, '
+              f'{pr["kernel_launch_calls"]} kernel launch calls, '
+              f'{pr["graph_launch_calls"]} graph launches, '
+              f'{pr["host_ms"]:.3f} ms a call untraced; peak '
+              f'{r["peak_mib"]:.1f} MiB allocated, {r["reserved_mib"]:.1f} '
+              f'MiB reserved')
+
+
+def _seq_values(torch, np, cfg, cap, bank, p):
+    """Calls of one graph key with other window starts, mtf_level and
+    audio_offset (SEQ_VALUE_CALLS fields): every graphed FieldDecoder call,
+    `process` and `process_resident`, equals an eager decoder's call with
+    the same values bit for bit, and the values move the outputs, so a
+    value frozen into a capture would show."""
+    from ld_decode_tpu_torch.ops import demod as D
+    from ld_decode_tpu_torch.tbc import field as TFD
+    nblk = p['nblocks']
+    eager = TFD.FieldDecoder(cfg, bank, nblk, device='cuda', graphs=False)
+    graphed = TFD.FieldDecoder(cfg, bank, nblk, device='cuda')
+    capt = torch.from_numpy(np.asarray(cap, np.float32)).cuda()
+    n = D.stream_len(cfg, nblk)
+    starts, rs = [], p['start']
+    while len(starts) < len(SEQ_VALUE_CALLS):
+        r = eager.process_resident(capt, rs)
+        if r is None:
+            fail(f'{cfg.system} values case: the capture ended')
+        if r.valid:
+            starts.append(rs)
+        rs += r.nextfieldoffset
+    firsts = []
+    for rs, (mtf, aoff) in zip(starts, SEQ_VALUE_CALLS):
+        window = cap[rs - cfg.blockcut:rs - cfg.blockcut + n]
+        for name, call in (
+                ('process', lambda dec: dec.process(window, mtf, aoff)),
+                ('process_resident',
+                 lambda dec: dec.process_resident(capt, rs, mtf, aoff))):
+            a, b = call(eager), call(graphed)
+            if not a.valid:
+                fail(f'{cfg.system} values case: {name} at {rs} invalid')
+            _same(np, f'{cfg.system} {name} at {rs}, mtf {mtf}, audio '
+                  f'offset {aoff}', _field_values(a), _field_values(b))
+        firsts.append(a)
+    c = graphed.graphs.counts
+    moved = not np.array_equal(firsts[0].dspicture, firsts[2].dspicture) \
+        and firsts[0].audio_next_offset != firsts[2].audio_next_offset
+    print(f'{cfg.system} values case, {len(starts)} fields with other '
+          f'starts, mtf_level and audio_offset: process and '
+          f'process_resident bit-equal to eager; graphs {c}; the values '
+          f'move the outputs: {moved}')
+    if c['replays'] < 2 * len(starts) or not moved:
+        fail(f'{cfg.system} values case: replays {c}, outputs moved '
+             f'{moved}')
+
+
+def _field_values(f) -> list:
+    return [f.valid, f.nextfieldoffset, f.istop, f.linecount,
+            f.audio_next_offset, f.linelocs, f.burstlevel, f.dspicture,
+            f.dsaudio, f.vbi, f.linecode]
+
+
+def _finish_batch(torch, np, FR, FU, CR, F, cfg, cap, nblk, start):
+    """field_finish_batch on a 16-field batch from a locked start, on the
+    card against the CPU on the same inputs (phase 5's budgets); its ms a
+    batch (CUDA events, median of FINISH_REPS) and K1 launches a call."""
+    bank = F.make_demod_bank(cfg, np.complex64, device='cuda')
+    fr = FR.Framer(cfg, bank, capture=cap, batch=1, nblocks=nblk,
+                   device='cuda', graphs=False)
+    f0, rs0, _ = fr.readfield(None, start)
+    rs0 = int(f0.readsample if f0.readsample >= 0 else rs0)
+    pitch = int(round(cfg.freq_hz / cfg.sys.fps / 2))
+    starts = FU.pipeline_starts(rs0, 0, FINISH_BATCH, pitch, cap.shape[0],
+                                cfg, nblk, device='cuda')
+    video, audio1, lld, lc, valid, *_ = FU.pipeline_analyze(
+        fr.capture_dev, starts, 1.0, bank, cfg, nblk)
+    if not bool(valid.all()):
+        fail(f'{cfg.system} finish batch: invalid fields in the batch')
+    offs = torch.arange(FINISH_BATCH, device='cuda', dtype=torch.float32) \
+        * 2.5e-6
+    n_audio1 = nblk * bank.a_stage1_keep
+    args = (video, audio1, lld.lli, lld.llf, lld.bad, lc, offs)
+
+    def call(dev, b):
+        a = [{k: v.to(dev) for k, v in x.items()} if isinstance(x, dict)
+             else x.to(dev) for x in args]
+        return FU.field_finish_batch(*a, b, cfg, n_audio1)
+
+    CR.resample_lines_batch.launches = 0
+    got = {k: v.cpu().numpy() for k, v in call('cuda', bank).items()}
+    launches = CR.resample_lines_batch.launches
+    ms = _event_median_ms(torch, lambda: call('cuda', bank), FINISH_REPS)
+    want = {k: v.numpy() for k, v in call(
+        'cpu', F.make_demod_bank(cfg, np.complex64, device='cpu')).items()}
+    loc = lambda d: d['linelocs_i'].astype(np.float64) + d['linelocs_f']
+    dll = float(np.abs(loc(got) - loc(want)).max())
+    lcs = lc.cpu().numpy()
+    p999, pmax, tmax = 0.0, 0, 0
+    for b in range(FINISH_BATCH):
+        n = int(lcs[b])
+        cut = n - PAL_TAIL_ROWS if cfg.system == 'PAL' else n
+        dp = np.abs(got['picture'][b, :n].astype(np.int64)
+                    - want['picture'][b, :n])
+        p999 = max(p999, float(np.percentile(dp[24:cut], 99.9)))
+        pmax = max(pmax, int(dp[24:cut].max()))
+        tmax = max(tmax, int(dp[cut:].max()) if cut < n else 0)
+    if not np.array_equal(got['audio_count'], want['audio_count']):
+        fail(f'{cfg.system} finish batch: audio tick counts differ')
+    da = np.concatenate([np.abs(got['audio'][b, :2 * (c - 1)].astype(
+        np.float64) - want['audio'][b, :2 * (c - 1)])
+        for b, c in enumerate(want['audio_count'])])
+    picks = da > AUDIO_PICK_LSB
+    arms = float(np.sqrt(np.mean(da[~picks] ** 2)))
+    print(f'{cfg.system} field_finish_batch, {FINISH_BATCH} fields: '
+          f'{ms:.3f} ms a batch on the card (CUDA events, median of '
+          f'{FINISH_REPS}); K1 {launches} launches a call; card vs CPU '
+          f'linelocs max|d| {dll:.2e} px, picture p99.9 {p999} max {pmax} '
+          f'LSB (tail rows max {tmax}), audio rms {arms:.3f} LSB with '
+          f'{int(picks.sum())} of {da.size} values over {AUDIO_PICK_LSB}')
+    if dll > 0.02 or p999 > 2 or pmax > 4 or tmax > PAL_TAIL_MAX \
+            or arms > 0.6 or picks.mean() > AUDIO_PICK_MAX:
+        fail(f'{cfg.system} field_finish_batch card vs CPU outside the '
+             f'budgets')
+    want_k1 = 3 if cfg.system == 'NTSC' else 1
+    if launches != want_k1:
+        fail(f'{cfg.system} field_finish_batch: K1 {launches} launches, '
+             f'want {want_k1}')
+    return dict(ms=ms, k1=launches)
+
+
+def seq_graphs_phase(torch, np, systems, d: str):
+    """systems: {name: (cfg, cap, bank)}.  Returns the numbers PERF.md
+    keeps and the paths' launches."""
+    phase('26 sequential graphs: --batch 1, the resident sequential '
+          'decode, the streaming comb, ldview, field_finish_batch')
+    import ldview_torch
+    from ld_decode_tpu_torch.comb import comb_ntsc as TC
+    from ld_decode_tpu_torch.io import loaders as L
+    from ld_decode_tpu_torch.ops import cuda_gather as CG
+    from ld_decode_tpu_torch.ops import filters as F
+    from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    from ld_decode_tpu_torch.tbc import framer as FR
+    from ld_decode_tpu_torch.tbc import fused as FU
+    res, launches = {}, {}
+    for system in ('NTSC', 'PAL'):
+        cfg, cap, bank = systems[system]
+        p = SEQ_PATHS[system]
+        spf = int(cfg.freq_hz / cfg.sys.fps) + 1
+        path = os.path.join(d, f'seq_graphs_{system}.lds')
+        L.pack_data_4_40(cap[:(SEQ_GRAPH_FRAMES + 4) * spf]).tofile(path)
+        runs = [(f'{system} --batch 1', path, SEQ_GRAPH_FRAMES)]
+        if system == 'NTSC':
+            runs.append(('NTSC resident sequential', cap, 5))
+        for label, source, n in runs:
+            e = _seq_run(torch, np, FR, CR, cfg, bank, source, p, False, n)
+            g = _seq_run(torch, np, FR, CR, cfg, bank, source, p, True, n)
+            _same(np, f'{label} .tbc frames', e['frames'], g['frames'])
+            _same(np, f'{label} .pcm audio', e['audio'], g['audio'])
+            _same(np, f'{label} fields', e['fields'], g['fields'])
+            if g['counts']['replays'] < 1 or e['k1'] != g['k1'] \
+                    or g['k1'] == 0:
+                fail(f'{label}: replays {g["counts"]}, K1 eager {e["k1"]} '
+                     f'graphs {g["k1"]}')
+            print(f'{label}, {n} frames: frames, audio and fields '
+                  f'bit-equal; K1 {g["k1"]} both ways')
+            _both_ways(label, e, g, 'msas', 'MSa/s')
+            res[label] = {k: {q: r[q] for q in (
+                'msas', 'steady', 'settled', 'prof', 'peak_mib',
+                'reserved_mib', 'counts', 'keys', 'capture_s', 'key_s')}
+                for k, r in (('eager', e), ('graphs', g))}
+            launches[label] = g['k1']
+        _seq_values(torch, np, cfg, cap, bank, p)
+        # the CLI both ways, the same files
+        outs = []
+        for flags in (['--no-graphs'], []):
+            out = os.path.join(d, f'cli_{system}{"".join(flags)}')
+            dt = _run_cli('lddecode_torch.py', [
+                path, out, '--batch', '1', '-l', '4', '-q'] + flags
+                + (['-p'] if system == 'PAL' else []))
+            outs.append((open(out + '.tbc', 'rb').read(),
+                         open(out + '.pcm', 'rb').read(), dt))
+        if outs[0][:2] != outs[1][:2] or not outs[0][0]:
+            fail(f'lddecode_torch.py --batch 1 {system}: the graphed and '
+                 f'the --no-graphs run wrote different files')
+        print(f'lddecode_torch.py --batch 1 -l 4 {system}: .tbc '
+              f'({len(outs[0][0])} bytes) and .pcm equal both ways; '
+              f'{outs[0][2]:.1f} s eager, {outs[1][2]:.1f} s graphed (new '
+              f'processes, the build and the warm-ups included)')
+        res[f'{system} cli s'] = dict(eager=outs[0][2], graphs=outs[1][2])
+        fb = _finish_batch(torch, np, FR, FU, CR, F, cfg, cap,
+                           DECODE_PATHS[system]['nblocks'],
+                           DECODE_PATHS[system]['start'])
+        res[f'{system} finish batch'] = fb
+        launches[f'{system} finish batch'] = fb['k1']
+
+    # the streaming comb over decoded frames of phase 4's capture
+    cfg, cap, bank = systems['NTSC']
+    fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=52,
+                   device='cuda')
+    frames, s = [], 33046
+    for i in range(STREAM_GRAPH_FRAMES + 4):
+        rv = fr.readframe(None, s, i == 0)
+        if rv[0] is None:
+            fail(f'streaming comb: capture ended at frame {i}')
+        frames.append(rv[0])
+        s = rv[2]
+    del fr
+    for label, ccfg, fs in (
+            ('NTSC streaming comb dim 3 flow', TC.CombConfig(dim=3),
+             frames),
+            ('NTSC streaming comb dim 2 -D -l',
+             TC.CombConfig(dim=2, debug2d=True, debugline=100),
+             frames[:8])):
+        e = _stream_run(torch, np, TC, CG, ccfg, fs, False)
+        g = _stream_run(torch, np, TC, CG, ccfg, fs, True)
+        _same(np, f'{label} RGB48, words, extras', e['out'], g['out'])
+        # (the flow runs from the second frame, from the third with K2)
+        if g['counts']['replays'] < 1 or e['k2'] != g['k2'] or (
+                ccfg.dim == 3 and g['k2'] != 9 * (len(fs) - 2)):
+            fail(f'{label}: replays {g["counts"]}, K2 eager {e["k2"]} '
+                 f'graphs {g["k2"]}')
+        print(f'{label}, {len(fs)} frames -> {g["emitted"]} RGB frames: '
+              f'RGB48, words and extras bit-equal; K2 {g["k2"]} both ways')
+        _both_ways(label, e, g, 'fps', 'RGB frames/s')
+        res[label] = {k: {q: r[q] for q in (
+            'fps', 'steady', 'prof', 'peak_mib', 'reserved_mib', 'counts',
+            'keys', 'capture_s', 'key_s')}
+            for k, r in (('eager', e), ('graphs', g))}
+        launches[label] = g['k2']
+
+    # ldview both ways on phase 26's NTSC .lds
+    # (the CLI is eager; main(graphs=True) is the comparison)
+    imgs = {}
+    for graphs in (False, True):
+        CR.resample_lines_batch.launches = 0
+        img = os.path.join(d, f'view_graphs{int(graphs)}.rgb')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = ldview_torch.main([os.path.join(d, 'seq_graphs_NTSC.lds'),
+                                '902', img], graphs=graphs)
+        torch.cuda.synchronize()
+        imgs[graphs] = (rc, time.perf_counter() - t0,
+                        CR.resample_lines_batch.launches,
+                        open(img, 'rb').read())
+    (rc0, t0_, k0, b0), (rc1, t1_, k1, b1) = imgs[False], imgs[True]
+    print(f'ldview_torch.py CAV 902 (raw RGB48): {t0_:.3f} s eager, '
+          f'{t1_:.3f} s graphed; the same image ({len(b0)} bytes); K1 '
+          f'{k0} / {k1}')
+    if rc0 or rc1 or b0 != b1 or len(b0) != 744 * 480 * 3 * 2 or k0 != k1:
+        fail('ldview: eager and graphed runs differ')
+    res['ldview s'] = dict(eager=t0_, graphs=t1_)
+    launches['ldview graphs'] = k1
+    return res, launches
 
 
 def main():
@@ -2868,6 +3286,9 @@ def run(torch, np, work: str):
     legacy_comb_phase(torch, np)
     graphs = graphs_phase(torch, np, systems)
     print('graphs vs eager', json.dumps(graphs))
+    seq_graphs, seq_launches = seq_graphs_phase(torch, np, systems,
+                                                _subdir(work, 'seqgraphs'))
+    print('sequential graphs vs eager', json.dumps(seq_graphs))
     if 'jax' in sys.modules:
         fail('jax was imported')
 
@@ -2887,6 +3308,13 @@ def run(torch, np, work: str):
     # the sharded decode is this slice's path: its `launches` are the
     # 2-rank world's, summed over the ranks
     k1_paths = {'ntsc seq decode': seq_ntsc, 'pal seq decode': seq_pal,
+                'ntsc seq decode graphs': seq_launches['NTSC --batch 1'],
+                'pal seq decode graphs': seq_launches['PAL --batch 1'],
+                'ntsc resident seq graphs':
+                    seq_launches['NTSC resident sequential'],
+                'ntsc finish batch': seq_launches['NTSC finish batch'],
+                'pal finish batch': seq_launches['PAL finish batch'],
+                'ldview graphs': seq_launches['ldview graphs'],
                 'ldview': two['k1_view'], 'pal decode': pal_launches,
                 'pal chain': pal_k1, 'ntsc decode': launches,
                 'ntsc chain': k1, 'ntsc codec decode': codec_k1['NTSC'],
@@ -2900,6 +3328,18 @@ def run(torch, np, work: str):
                      ms_method=MS_METHOD)
     k3_launches = k3.pop('launches')
     print(json.dumps({'kernels': [
+        dict(name='resample_lines_batch[ntsc finish batch]',
+             shape='ntsc field_finish_batch picture (16, 263, 910)',
+             launches=seq_launches['NTSC finish batch'] // 3, **k1_common,
+             **kres['K1']['ntsc picture']),
+        dict(name='resample_lines_batch[ntsc finish batch burst]',
+             shape='ntsc field_finish_batch burst window (16, 263, 48)',
+             launches=2 * seq_launches['NTSC finish batch'] // 3,
+             **k1_common, **kres['K1']['ntsc burst window']),
+        dict(name='resample_lines_batch[pal finish batch]',
+             shape='pal field_finish_batch picture (16, 313, 1135)',
+             launches=seq_launches['PAL finish batch'], **k1_common,
+             **kres['K1']['pal-width picture']),
         dict(name='resample_lines_batch[ntsc codec]',
              shape='ntsc picture (16, 263, 910), --pic-mode codec',
              launches=codec_k1['NTSC'], **k1_common,
@@ -2936,8 +3376,11 @@ def run(torch, np, work: str):
         dict(name='take_along_axis', route='cuda',
              source='ld_decode_tpu_torch/csrc/take_along_axis.cu',
              replaces='scripts/probe_warp.py:118', launches=k2_stream,
-             launches_by_path={'ntsc stream comb': k2_stream,
-                               'ldexport': two['k2'], 'ntsc chain': k2},
+             launches_by_path={
+                 'ntsc stream comb': k2_stream, 'ldexport': two['k2'],
+                 'ntsc chain': k2,
+                 'ntsc stream comb graphs':
+                     seq_launches['NTSC streaming comb dim 3 flow']},
              ms_method=MS_METHOD, **kres['K2']['warp 2 fields x 252x840']),
         dict(name='envelope_lanes', route='cuda',
              source='ld_decode_tpu_torch/csrc/cx_envelope.cu',

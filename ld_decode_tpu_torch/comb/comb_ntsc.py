@@ -25,13 +25,24 @@ line-0 words of the emitted frame, and the debug surfaces -D
 both fields of a frame through one batched Farnebäck call
 (`farneback_combk2`), or through OpenCV on the host with
 optflow_engine='cv2' (a parity oracle).
+
+On the card `NTSCComb` replays three programs as CUDA graphs
+(utils/graphs.py), as the JAX package jits `flow_luma`, `_farneback_jit`
+and `comb_frame`/`comb_frame_of`: the flow luma with its field images, the
+Farnebäck step with its confidence map (one key without an initial flow,
+for the second frame, one with it after; the first frame has no flow and
+takes a zero map), and `_frame_core`.  The AGC stays on the host between
+them, its levels a dynamic input; the flow and field-image carries are
+fed back as dynamic inputs, the field images cloned since the next
+frame's replay overwrites them.  engine='cv2' runs its Farnebäck on the
+host, eagerly.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import scipy.signal as sps
@@ -42,6 +53,7 @@ from ld_decode_tpu_torch.comb.optflow import calc_optical_flow_farneback
 from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from ld_decode_tpu_torch.utils.device import constant
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
+from ld_decode_tpu_torch.utils.graphs import GraphCache, as_cache
 
 IN_Y, IN_X = 525, 910
 FREQ4 = 4 * 315.0 / 88.0
@@ -611,20 +623,37 @@ def _frame_core(raw_u16, prev_u16, next_u16, levels: torch.Tensor,
 
 
 def comb_frame(raw_u16, prev_u16, next_u16, aburstlev: float,
-               cfg: CombConfig):
-    """One (IN_Y, IN_X) frame: (RGB48 int32, the AGC carry, extras)."""
-    levels, ab = burst_levels(raw_u16[None], aburstlev, cfg)
-    rgb, extras = _frame_core(raw_u16, prev_u16, next_u16, levels[0], cfg)
-    return rgb, ab, extras
+               cfg: CombConfig, graphs: Optional[GraphCache] = None):
+    """One (IN_Y, IN_X) frame: (RGB48 int32, the AGC carry, extras).
+    graphs: a cache that runs `_frame_core` (one key a configuration);
+    replayed, the RGB and extras are the graph's static tensors, which the
+    next frame's replay overwrites."""
+    return _comb_one(raw_u16, prev_u16, next_u16, None, aburstlev, cfg,
+                     graphs)
 
 
 def comb_frame_of(raw_u16, newest_u16, combk2, aburstlev: float,
-                  cfg: CombConfig):
+                  cfg: CombConfig, graphs: Optional[GraphCache] = None):
     """One frame in the optical-flow mode, gated by the flow confidence
-    map `combk2` (farneback_combk2)."""
-    levels, ab = burst_levels(raw_u16[None], aburstlev, cfg)
-    rgb, extras = _frame_core(raw_u16, newest_u16, newest_u16, levels[0],
-                              cfg, combk2_in=combk2)
+    map `combk2` (farneback_combk2); graphs as in `comb_frame`."""
+    return _comb_one(raw_u16, newest_u16, newest_u16, combk2, aburstlev,
+                     cfg, graphs)
+
+
+def _comb_one(raw, prev, nxt, combk2, aburstlev: float, cfg: CombConfig,
+              graphs: Optional[GraphCache]):
+    """The AGC levels on the host (a dynamic input of the graph), then
+    `_frame_core`, through `graphs` when given."""
+    levels, ab = burst_levels(raw[None], aburstlev, cfg)
+    ins = (raw, prev, nxt, levels[0])
+    if combk2 is not None:
+        ins += (combk2,)
+
+    def core(r, p, n, lv, k2=None):
+        return _frame_core(r, p, n, lv, cfg, combk2_in=k2)
+
+    rgb, extras = core(*ins) if graphs is None else graphs(
+        ('frame_core', cfg, combk2 is not None), core, ins)
     return rgb, ab, extras
 
 
@@ -659,6 +688,18 @@ def flow_confidence(flow: torch.Tensor, core: float, rng: float
                  (70, 0, 0, IN_Y - 2 * _CYSIZE))
 
 
+def _flow_step(pics: torch.Tensor, prev: torch.Tensor,
+               init: Optional[torch.Tensor], core: float, rng: float):
+    """One batched Farnebäck call over both fields (streaming argument
+    order: prev_img = the newer field images) and its confidence map:
+    (flow (2, 252, 840, 2), combk2 (IN_Y, IN_X)).  init None: no initial
+    flow."""
+    flow = calc_optical_flow_farneback(
+        pics, prev, init, 0.5, 4, 60, 3, 7, 1.5,
+        use_initial_flow=init is not None, device=pics.device)
+    return flow, flow_confidence(flow, core, rng)
+
+
 def farneback_combk2(y_now: torch.Tensor, prev_pics: dict, flows: dict,
                      fcount: int, p_3dcore: float = 0.0,
                      p_3drange: float = 0.5,
@@ -672,27 +713,44 @@ def farneback_combk2(y_now: torch.Tensor, prev_pics: dict, flows: dict,
     calc_optical_flow_farneback call on y_now's device (K2 gathers both
     fields' rows in each of its 9 launches); engine='cv2' calls OpenCV on
     the host, one field at a time (the parity oracle)."""
-    pics = field_pics(y_now)                       # (2, 252, 840)
-    dev = y_now.device
+    return combk2_of_pics(field_pics(y_now), prev_pics, flows, fcount,
+                          p_3dcore, p_3drange, engine)
+
+
+def combk2_of_pics(pics: torch.Tensor, prev_pics: dict, flows: dict,
+                   fcount: int, p_3dcore: float = 0.0,
+                   p_3drange: float = 0.5, engine: str = 'native',
+                   graphs: Optional[GraphCache] = None) -> torch.Tensor:
+    """`farneback_combk2` from the field images (2, 252, 840)
+    (`field_pics`).  The native engine's Farnebäck step runs through
+    `graphs` when given (one key with an initial flow, one without); the
+    flows carry then holds views of the graph's static output, which the
+    next step reads as its dynamic input before it replays."""
+    dev = pics.device
     host = pics.cpu().numpy().astype(np.uint16) if engine == 'cv2' else None
-    combk2 = torch.zeros((IN_Y, IN_X), dtype=torch.float32, device=dev)
-    if fcount:
-        use_init = fcount > 1
-        if engine == 'cv2':
-            import cv2
-            flags = cv2.OPTFLOW_USE_INITIAL_FLOW if use_init else 0
-            for field in range(2):
-                flows[field] = cv2.calcOpticalFlowFarneback(
-                    host[field], prev_pics[field], flows.get(field), 0.5, 4,
-                    60, 3, 7, 1.5, flags)
-            flow = torch.from_numpy(np.stack([flows[0], flows[1]])).to(dev)
-        else:
-            init = torch.stack([flows[0], flows[1]]) if use_init else None
-            flow = calc_optical_flow_farneback(
-                pics, torch.stack([prev_pics[0], prev_pics[1]]), init, 0.5,
-                4, 60, 3, 7, 1.5, use_initial_flow=use_init, device=dev)
-            flows[0], flows[1] = flow[0], flow[1]
+    if not fcount:
+        combk2 = torch.zeros((IN_Y, IN_X), dtype=torch.float32, device=dev)
+    elif engine == 'cv2':
+        import cv2
+        flags = cv2.OPTFLOW_USE_INITIAL_FLOW if fcount > 1 else 0
+        for field in range(2):
+            flows[field] = cv2.calcOpticalFlowFarneback(
+                host[field], prev_pics[field], flows.get(field), 0.5, 4,
+                60, 3, 7, 1.5, flags)
+        flow = torch.from_numpy(np.stack([flows[0], flows[1]])).to(dev)
         combk2 = flow_confidence(flow, p_3dcore, p_3drange)
+    else:
+        ins = [pics, torch.stack([prev_pics[0], prev_pics[1]])]
+        if fcount > 1:
+            ins.append(torch.stack([flows[0], flows[1]]))
+
+        def step(p, q, init=None):
+            return _flow_step(p, q, init, p_3dcore, p_3drange)
+
+        key = ('farneback_combk2', fcount > 1, p_3dcore, p_3drange)
+        flow, combk2 = step(*ins) if graphs is None \
+            else graphs(key, step, ins)
+        flows[0], flows[1] = flow[0], flow[1]
     for field in range(2):
         prev_pics[field] = host[field] if host is not None else pics[field]
     return combk2
@@ -755,9 +813,15 @@ class NTSCComb:
     each emitted RGB frame comes to the host."""
 
     def __init__(self, cfg: CombConfig = CombConfig(),
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE,
+                 graphs: Union[bool, GraphCache] = True):
+        """graphs=True (the default) replays the flow luma, the Farnebäck
+        step and the comb of a frame as CUDA graphs on the card (module
+        docstring; eager on the CPU); graphs=False runs them eagerly, for
+        comparisons; a GraphCache is used as given."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.graphs = as_cache(graphs, self.device)
         self.ring = []
         self.aburstlev = -1.0
         self.framecount = 0
@@ -789,10 +853,17 @@ class NTSCComb:
             if cfg.opticalflow and self.framecount >= 1:
                 # flow between the newest frame's NR'd luma and the
                 # previous one (comb-ntsc.cxx:852-858)
-                self._of_combk2 = farneback_combk2(
-                    flow_luma(frame, cfg), self._of_prev, self._of_flows,
-                    self._of_count, cfg.of_3dcore, cfg.of_3drange,
-                    cfg.optflow_engine)
+                pics = self.graphs(('flow_luma', cfg),
+                                   lambda f: field_pics(flow_luma(f, cfg)),
+                                   (frame,))
+                if self.graphs.aliased:
+                    # the next frame's replay overwrites them; they are
+                    # that frame's previous field images
+                    pics = pics.clone()
+                self._of_combk2 = combk2_of_pics(
+                    pics, self._of_prev, self._of_flows, self._of_count,
+                    cfg.of_3dcore, cfg.of_3drange, cfg.optflow_engine,
+                    graphs=self.graphs)
                 self._of_count += 1
             if len(self.ring) < 3:
                 self.framecount += 1
@@ -803,23 +874,27 @@ class NTSCComb:
             # Split3D(f=1): p3=Frame[0] (newest), n3=Frame[2] (oldest)
             if cfg.opticalflow:
                 rgb, self.aburstlev, extras = comb_frame_of(
-                    cur, nxt, self._of_combk2, self.aburstlev, cfg)
+                    cur, nxt, self._of_combk2, self.aburstlev, cfg,
+                    self.graphs)
             else:
                 rgb, self.aburstlev, extras = comb_frame(
-                    cur, nxt, prv, self.aburstlev, cfg)
+                    cur, nxt, prv, self.aburstlev, cfg, self.graphs)
         else:
             self.last_frame_words = _frame_words(frame)
             rgb, self.aburstlev, extras = comb_frame(
-                frame, frame, frame, self.aburstlev, cfg)
+                frame, frame, frame, self.aburstlev, cfg, self.graphs)
         self.framecount += 1
         out = rgb.cpu().numpy().astype(np.uint16)
+        # copies, also on the CPU: replayed, the extras are the graph's
+        # static tensors, which the next frame overwrites
         if cfg.debug2d:
             self.last_debug2d = {
-                'mse_line': extras['mse_line'].cpu().numpy(),
-                'me_line': extras['me_line'].cpu().numpy(),
+                'mse_line': extras['mse_line'].to('cpu', copy=True).numpy(),
+                'me_line': extras['me_line'].to('cpu', copy=True).numpy(),
                 'mse': float(extras['mse']), 'me': float(extras['me'])}
         if cfg.debugline > -9999:
-            self.last_debugline = {k[4:]: extras[k].cpu().numpy()
+            self.last_debugline = {k[4:]: extras[k].to('cpu', copy=True)
+                                   .numpy()
                                    for k in ('dbg_y', 'dbg_i', 'dbg_q')}
             row = cfg.debugline + 25 - cfg.firstline
             if 0 <= row < out.shape[0]:

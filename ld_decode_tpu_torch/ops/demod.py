@@ -35,6 +35,14 @@ def delta_phase(hr: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     return F.pad(dphi, (1, 0))
 
 
+def instantaneous_freq(analytic: torch.Tensor, freq_hz: float) -> torch.Tensor:
+    """Instantaneous frequency in Hz of a complex analytic signal, the
+    first sample 0 (reference lddutils.py:320-334).  The JAX package
+    carries complex numbers as (re, im) pairs across its host boundary
+    (`cx`); torch tensors are complex natively, so this takes one."""
+    return delta_phase(analytic.real, analytic.imag) * (freq_hz / TAU)
+
+
 def overlap_blocks(samples: torch.Tensor, cfg: DecoderConfig,
                    nblocks: int) -> torch.Tensor:
     """(..., stream_len) stream -> (..., nblocks, blocklen) overlapping

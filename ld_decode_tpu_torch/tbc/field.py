@@ -19,12 +19,34 @@ paths decode one field a call:
 
 Every line resample of both goes through tbc/cuda_resample.py at B=1: the
 hand-written kernel on the card, the plain version on the CPU.
+
+The device work runs through a `utils/graphs.py::GraphCache`, one key per
+program the JAX package jits on these paths, so on the card each is a
+CUDA graph after its warm-up and capture:
+
+  * `process_resident`: two keys, `field_analyze` (keyed by cfg and
+    nblocks, reading the capture in place) and `field_finish` (keyed by
+    cfg, n_audio1, colorlevel and colorphase); the line tables are padded
+    to `max_nlines(cfg)` and the line count is a tensor, as in JAX;
+  * `process`: one key a device segment -- the demod (keyed by nblocks),
+    the sync peaks, the hsync zero crossings, the burst window resample
+    with `burst_phase_offsets` (its two passes replay one key), the PAL
+    pilot pass, the picture resample and audio stage 2.  Their line tables
+    are keyed by the field's line count (262/263, 312/313), as JAX's
+    static `nlines` is.
+
+Every value a call varies (the samples, the start, mtf_level,
+audio_offset, the line count and tables) is a tensor input copied into the
+graph's static inputs, never a constant of the capture; the host float64
+repairs and every read-back sit between the segments.  A segment reads the
+outputs of an earlier one in place (the cache's `reads`), within the same
+call: the next call's replays overwrite them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,6 +63,7 @@ from ld_decode_tpu_torch.tbc import burst as B
 from ld_decode_tpu_torch.tbc import fused as FU
 from ld_decode_tpu_torch.tbc import sync as S
 from ld_decode_tpu_torch.tbc.cuda_resample import resample_lines_batch
+from ld_decode_tpu_torch.utils.graphs import GraphCache, as_cache
 
 
 @dataclass
@@ -90,7 +113,12 @@ class FieldDecoder:
     """Decodes one field per call from a device-resident capture."""
 
     def __init__(self, cfg: DecoderConfig, bank: DemodBank,
-                 nblocks: int = 66, device=DEFAULT_DEVICE):
+                 nblocks: int = 66, device=DEFAULT_DEVICE,
+                 graphs: Union[bool, GraphCache] = True):
+        """graphs=True (the default) replays each device segment as a CUDA
+        graph on the card (module docstring; eager on the CPU);
+        graphs=False runs them eagerly, for comparisons; a GraphCache is
+        used as given."""
         FU.require_tbc(cfg)
         need_lines = cfg.sys.field_lines + 0.5 + 21
         window_lines = nblocks * cfg.block_keep / cfg.linelen_float
@@ -103,6 +131,7 @@ class FieldDecoder:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.bank = bank.to(self.device)
+        self.graphs = as_cache(graphs, self.device)
         self.nblocks = nblocks
         self.inlinelen = cfg.linelen
         self.outlinelen = cfg.sys.outlinelen
@@ -126,15 +155,22 @@ class FieldDecoder:
     def demod(self, samples, mtf_level: float):
         """Demod one field window of stream_len samples (the loader's
         values, not recentred, as the JAX package passes them): video and
-        audio taps, each (1, n) on the device."""
+        audio taps, each (1, n) on the device.  One graph key."""
         if not isinstance(samples, torch.Tensor):
             samples = torch.from_numpy(np.asarray(samples).astype(np.float32))
-        return D.demod_stream(samples.to(self.device, torch.float32)[None],
-                              self.bank, self.cfg, self.nblocks, mtf_level)
+        bank, cfg, nblocks = self.bank, self.cfg, self.nblocks
+        return self.graphs(
+            ('demod_stream', id(bank), cfg, nblocks),
+            lambda x, m: D.demod_stream(x, bank, cfg, nblocks, m),
+            (samples.to(self.device, torch.float32)[None],
+             D._level(mtf_level, bank.rdtype, self.device)))
 
     def sync_peaks(self, video) -> Tuple[np.ndarray, np.ndarray]:
         window = int(self.inlinelen * 0.4)
-        idx, val = S.find_sync_peaks(video['demod_sync'], window)
+        sync = video['demod_sync']
+        idx, val = self.graphs(('find_sync_peaks', window),
+                               lambda: S.find_sync_peaks(sync, window), (),
+                               reads=(sync,))
         idx = idx[0].cpu().numpy()
         val = val[0].cpu().numpy()
         n = int((idx >= 0).sum())
@@ -276,11 +312,14 @@ class FieldDecoder:
         starts[:9] -= 200          # search for the *beginning* of hsync
 
         # the starts cross as float32, as the JAX package's do with x64 off
-        starts_i, zc_rel, refined_rel, bad_dev, found = S.refine_hsync_zc(
-            video['demod_05'], self._put(starts.astype(np.float32)),
-            int(round(cfg.freq_mhz)), cfg.iretohz(-20), cfg.iretohz(-60),
-            cfg.iretohz(20), cfg.iretohz(100), cfg.iretohz(-10),
-            cfg.iretohz(10))
+        d05 = video['demod_05']
+        starts_i, zc_rel, refined_rel, bad_dev, found = self.graphs(
+            ('refine_hsync_zc', cfg),
+            lambda st: S.refine_hsync_zc(
+                d05, st, int(round(cfg.freq_mhz)), cfg.iretohz(-20),
+                cfg.iretohz(-60), cfg.iretohz(20), cfg.iretohz(100),
+                cfg.iretohz(-10), cfg.iretohz(10)),
+            (self._put(starts.astype(np.float32)),), reads=(d05,))
         starts_i = starts_i[0].cpu().numpy().astype(np.float64)
         zc = starts_i + zc_rel[0].cpu().numpy().astype(np.float64)
         refined = starts_i + refined_rel[0].cpu().numpy().astype(np.float64)
@@ -320,26 +359,31 @@ class FieldDecoder:
             ll2[i] = ll2[i - 1] + gap
         return ll2, bad
 
-    def _resample(self, data: torch.Tensor, linelocs: np.ndarray,
-                  nlines: int, **window) -> torch.Tensor:
-        """Lines of one field through K1's dispatcher at B=1, from float64
-        host locations."""
-        return resample_lines_batch(data, *self._put_locs(linelocs),
-                                    self.outlinelen, nlines,
+    def _resample(self, data: torch.Tensor, lli: torch.Tensor,
+                  llf: torch.Tensor, nlines: int, **window) -> torch.Tensor:
+        """Lines of one field through K1's dispatcher at B=1, from the
+        split tables of `_put_locs`."""
+        return resample_lines_batch(data, lli, llf, self.outlinelen, nlines,
                                     float(self.inlinelen), **window)[0]
 
     def refine_linelocs_burst(self, video, linelocs, linecount):
         """(reference lddecode_core.py:1054-1133).  The burst window is the
         resample's grid columns 16..63 (the positions of the JAX package's
         full-width call, ld_decode_tpu/tbc/resample.py:89-92), whose burst
-        starts at column 4."""
+        starts at column 4.  The window and the phase estimate are one
+        graph key, keyed by the line count; both passes replay it."""
         cfg = self.cfg
-        scaled = self._resample(video['demod_burst'], linelocs, linecount,
-                                col0=16, ncols=48)
-
+        burst = video['demod_burst']
         hz_ire = 1700000 / 140
-        ph0, ph1, level, level_ok, counts_ok = B.burst_phase_offsets(
-            scaled, hz_ire, win0=4)
+
+        def window(lli, llf):
+            scaled = self._resample(burst, lli, llf, linecount, col0=16,
+                                    ncols=48)
+            return B.burst_phase_offsets(scaled, hz_ire, win0=4)
+
+        ph0, ph1, level, level_ok, counts_ok = self.graphs(
+            ('burst_window', cfg, linecount), window,
+            self._put_locs(linelocs), reads=(burst,))
         ph0 = ph0.cpu().numpy().astype(np.float64)
         ph1 = ph1.cpu().numpy().astype(np.float64)
         level = level.cpu().numpy().astype(np.float64)
@@ -383,8 +427,11 @@ class FieldDecoder:
         float64 on the host as the JAX package's sequential path does it."""
         cfg = self.cfg
         lineoffset = 1 if cfg.system == 'NTSC' else 3
-        out = self._resample(video['demod'], linelocs[lineoffset:],
-                             linecount)
+        demod = video['demod']
+        out = self.graphs(
+            ('picture', cfg, linecount),
+            lambda lli, llf: self._resample(demod, lli, llf, linecount),
+            self._put_locs(linelocs[lineoffset:]), reads=(demod,))
         dsout = out.cpu().numpy().astype(np.float64).reshape(-1)
 
         sp = cfg.sys
@@ -435,8 +482,14 @@ class FieldDecoder:
         readsample = max(readsample, cfg.blockcut)
         if readsample - cfg.blockcut + n > capture.shape[0]:
             return None
-        video, audio, idx, val = FU.field_analyze(
-            capture, readsample, self.bank, cfg, self.nblocks, mtf_level)
+        bank, nblocks = self.bank, self.nblocks
+        video, audio, idx, val = self.graphs(
+            ('field_analyze', id(bank), cfg, nblocks),
+            lambda s, m: FU.field_analyze(capture, s, bank, cfg, nblocks, m),
+            (torch.full((1,), readsample, dtype=torch.int32,
+                        device=self.device),
+             D._level(mtf_level, bank.rdtype, self.device)),
+            reads=(capture,))
         idx = idx[0].cpu().numpy()
         val = val[0].cpu().numpy()
         nvalid = int((idx >= 0).sum())
@@ -470,13 +523,23 @@ class FieldDecoder:
         nmax = FU.max_nlines(cfg)
         ll1p, badp = FU.pad_linelocs(linelocs1, linebad, nmax, cfg.linelen)
         dev = self.device
-        out = FU.field_finish(
-            video, audio, *self._put_locs(ll1p), self._put(badp),
-            torch.full((1,), linecount, dtype=torch.int32, device=dev),
-            torch.full((1,), audio_offset, dtype=torch.float32, device=dev),
-            self.bank, cfg, n_audio1,
-            colorlevel=self.colorlevel, colorphase=self.colorphase)
-        data = {k: v[0].cpu().numpy() for k, v in out.items()}
+        bank, clevel, cphase = self.bank, self.colorlevel, self.colorphase
+        taps = list(video.values()) + (list(audio.values())
+                                       if audio is not None else [])
+        out = self.graphs(
+            ('field_finish', id(bank), cfg, n_audio1, clevel, cphase),
+            lambda i_, f_, b_, l_, o_: FU.field_finish(
+                video, audio, i_, f_, b_, l_, o_, bank, cfg, n_audio1,
+                colorlevel=clevel, colorphase=cphase),
+            self._put_locs(ll1p) + (
+                self._put(badp),
+                torch.full((1,), linecount, dtype=torch.int32, device=dev),
+                torch.full((1,), audio_offset, dtype=torch.float32,
+                           device=dev)),
+            reads=taps)
+        # copies, also on the CPU: a replay's outputs are the graph's static
+        # tensors, which the next call overwrites
+        data = {k: v[0].to('cpu', copy=True).numpy() for k, v in out.items()}
 
         nlines = len(linelocs1)
         linelocs = (data['linelocs_i'].astype(np.float64)
@@ -540,9 +603,12 @@ class FieldDecoder:
             linelocs = ll4 + (shift33 - 8) * px_per_phase
         else:
             from ld_decode_tpu_torch.tbc import pal as PALK
-            li2, lf2 = PALK.refine_pilot(
-                video['demod'], video['demod_05'],
-                *self._put_locs(linelocs2), cfg.linelen, cfg.freq_mhz)
+            demod, d05 = video['demod'], video['demod_05']
+            li2, lf2 = self.graphs(
+                ('refine_pilot', cfg),
+                lambda i_, f_: PALK.refine_pilot(demod, d05, i_, f_,
+                                                 cfg.linelen, cfg.freq_mhz),
+                self._put_locs(linelocs2), reads=(demod, d05))
             linelocs = (li2[0].cpu().numpy().astype(np.float64)
                         + lf2[0].cpu().numpy().astype(np.float64))
 
@@ -558,9 +624,12 @@ class FieldDecoder:
         result.dspicture = self.downscale_picture(video, linelocs, linecount,
                                                   burstlevel)
         if audio is not None:
-            n1 = audio['audio_left'].shape[-1]
-            l2, r2 = audio_stage2(audio['audio_left'], audio['audio_right'],
-                                  self.bank, n1)
+            al, ar = audio['audio_left'], audio['audio_right']
+            n1 = al.shape[-1]
+            bank = self.bank
+            l2, r2 = self.graphs(
+                ('audio_stage2', id(bank), n1),
+                lambda: audio_stage2(al, ar, bank, n1), (), reads=(al, ar))
             a2 = {'audio_left': l2[0].cpu().numpy(),
                   'audio_right': r2[0].cpu().numpy()}
             result.dsaudio, result.audio_next_offset = downscale_audio(

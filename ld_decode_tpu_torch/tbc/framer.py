@@ -18,7 +18,7 @@ import torch
 
 from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
-from ld_decode_tpu_torch.utils.graphs import GraphCache
+from ld_decode_tpu_torch.utils.graphs import GraphCache, as_cache
 from ld_decode_tpu_torch.utils.params import DecoderConfig
 from ld_decode_tpu_torch.ops import demod as D
 from ld_decode_tpu_torch.ops.filters import DemodBank
@@ -93,7 +93,11 @@ class Framer:
         (the default; the JAX package always jits) replays each batch call
         as a CUDA graph on the card (utils/graphs.py; eager on the CPU);
         graphs=False runs it eagerly, for comparisons; a GraphCache is
-        passed to the prefetcher as given.
+        used as given.  At batch=1 the cache serves the decoder's
+        sequential programs; at batch > 1 it serves the prefetcher, and the
+        decoder's fallback for a batch head that does not lock stays eager:
+        it runs for the first field of a segment and at a resync, too
+        rarely to repay a capture.
 
         batch=1: one field a call, in order (the JAX package's default): a
         loader's window of each field is read and decoded by
@@ -113,7 +117,10 @@ class Framer:
         self.flip_fields = flip_fields
         self.bff = bff
         self.nblocks = nblocks
-        self.decoder = FieldDecoder(cfg, self.bank, nblocks, self.device)
+        self.graphs = as_cache(graphs, self.device)
+        self.decoder = FieldDecoder(cfg, self.bank, nblocks, self.device,
+                                    graphs=self.graphs if batch <= 1
+                                    else False)
 
         self.capture_dev = None
         if capture is not None:
@@ -125,7 +132,7 @@ class Framer:
                                               batch,
                                               fetch_picture=fetch_picture,
                                               pic_mode=pic_mode,
-                                              graphs=graphs)
+                                              graphs=self.graphs)
         if self.prefetcher is not None and self.capture_dev is None:
             if segment_samples <= 0:
                 segment_samples = 256 << 20      # 1 GiB of float32

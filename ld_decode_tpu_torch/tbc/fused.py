@@ -20,7 +20,9 @@ dispatcher in tbc/cuda_resample.py: the hand-written kernel on the card,
 the plain version on the CPU.
 
 The sequential single-field path (`field_analyze` + `field_finish`) serves
-the framer's fallback for the first field, as in the JAX package.
+the framer's fallback for the first field, as in the JAX package;
+`field_analyze_batch` / `field_finish_batch` are its batched forms and
+`field_finish_core` its unbatched finish.
 """
 
 from __future__ import annotations
@@ -146,12 +148,26 @@ def _analyze_core(capture: torch.Tensor, starts: torch.Tensor,
     return video, audio, idx, val.to(torch.float32)
 
 
-def field_analyze(capture: torch.Tensor, start: int, bank: DemodBank,
+def field_analyze(capture: torch.Tensor, start, bank: DemodBank,
                   cfg: DecoderConfig, nblocks: int, mtf_level):
-    """Phase A for one field window (batch of 1)."""
-    starts = torch.full((1,), int(start), dtype=torch.int32,
-                        device=capture.device)
+    """Phase A for one field window (batch of 1).  start: an int, or a
+    device tensor of one element (what a replayed graph takes, since a
+    capture would freeze a host value)."""
+    starts = _scalar(start, torch.int32, capture.device).reshape(1)
     return _analyze_core(capture, starts, bank, cfg, nblocks, mtf_level)
+
+
+def field_analyze_batch(capture: torch.Tensor, starts: torch.Tensor,
+                        bank: DemodBank, cfg: DecoderConfig, nblocks: int,
+                        mtf_level):
+    """Phase A over a (B,) tensor of window starts (the JAX package's vmap
+    of the analyze phase; the capture and the bank are shared).  Returns
+    (video, audio, peak idx (B, MAX_PEAKS), peak val (B, MAX_PEAKS)).
+    The JAX function packs idx/val into one flat u16 bundle for its
+    device-to-host tunnel (`PEAKS_SPEC`); bundles do not carry over to the
+    port, which returns the tensors."""
+    return _analyze_core(capture, starts.to(torch.int32), bank, cfg,
+                         nblocks, mtf_level)
 
 
 # ---------------------------------------------------------------------------
@@ -485,6 +501,51 @@ def field_finish(video, audio1, ll1i, ll1f, linebad, lc, audio_offset,
     return _finish_output(video, audio1, lli, llf, scaled, lc, audio_offset,
                           bank, cfg, n_audio1, colorlevel, burstlevel,
                           philips_windows=True)
+
+
+def field_finish_core(video, audio1, ll1i, ll1f, linebad, lc, audio_offset,
+                      bank: DemodBank, cfg: DecoderConfig, n_audio1: int,
+                      colorlevel: float = 1.45, colorphase: float = 91.5):
+    """The finish of ONE field, unbatched as the JAX function is: video
+    taps (n,), audio taps (n1,) or None, line tables (max_nlines(cfg),),
+    lc and audio_offset scalars.  Returns `field_finish`'s dict for that
+    field (no batch axis), where the JAX function returns one packed u16
+    buffer (`finish_bundle_spec`): bundles do not carry over to the port.
+    The picture goes through tbc/cuda_resample.py at B=1 (K1 on the card,
+    its plain version on the CPU), bit-equal to the XLA resample JAX uses
+    here (`_picture_scaled_xla`)."""
+    def one(t):
+        return t.reshape(1, *t.shape)
+
+    video = {k: one(v) for k, v in video.items()}
+    if audio1 is not None:
+        audio1 = {k: one(v) for k, v in audio1.items()}
+    out = field_finish(video, audio1, one(ll1i), one(ll1f), one(linebad),
+                       one(lc), one(audio_offset), bank, cfg, n_audio1,
+                       colorlevel, colorphase)
+    return {k: v[0] for k, v in out.items()}
+
+
+def field_finish_batch(video, audio1, ll1i, ll1f, linebad, lc, audio_offset,
+                       bank: DemodBank, cfg: DecoderConfig, n_audio1: int,
+                       colorlevel: float = 1.45, colorphase: float = 91.5,
+                       pallas: bool = False):
+    """The finish over a leading batch-of-fields axis (B, ...): one K1
+    launch for the whole batch's picture ((B, 263, 910) NTSC, (B, 313,
+    1135) PAL from line 3) and, for NTSC, two for its burst windows.
+    Returns `field_finish`'s dict of (B, ...) tensors, where the JAX
+    function returns the fields' packed u16 buffers, flat: bundles do not
+    carry over to the port.
+
+    `pallas` takes its JAX position and changes nothing here: in JAX it
+    picks the TPU kernel for the batch's resamples (which differs from the
+    XLA graph by up to 4 LSB, ld_decode_tpu/tbc/fused.py:977-981) over the
+    vmapped XLA gathers; the port always takes its one resample dispatcher,
+    whose kernel and plain version both hold to the XLA contract."""
+    del pallas
+    return field_finish(video, audio1, ll1i, ll1f, linebad, lc,
+                        audio_offset, bank, cfg, n_audio1, colorlevel,
+                        colorphase)
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,49 @@ def cubic_gather(data: torch.Tensor, i0: torch.Tensor,
     return out.reshape(shape)
 
 
+def sample_cubic(data: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Cubic interpolation of 1-D `data` at fractional positions `pos`
+    (any shape).  Positions are clamped to the valid interior [1, n-3]
+    before the floor."""
+    n = data.shape[0]
+    pos = pos.to(data.dtype).clamp(1.0, n - 3.0)
+    i0 = torch.floor(pos).to(torch.int32)
+    return cubic_gather(data[None], i0[None], (pos - i0)[None])[0]
+
+
+def downscale_lines(data: torch.Tensor, lineinfo: torch.Tensor,
+                    outwidth: int, nlines: int,
+                    wow_scale: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Resample `nlines` scan lines of 1-D `data` onto `outwidth` samples
+    each (reference lddutils.py:93-96 evaluation grid).
+
+    lineinfo: (nlines+1,) float sample locations of line starts; output
+    sample k of line l is data interpolated at
+    lineinfo[l] + k*(lineinfo[l+1]-lineinfo[l])/outwidth.  wow_scale:
+    optional (nlines,) per-line amplitude correction.  Returns (nlines,
+    outwidth).
+
+    The positions are `data`'s float32, as the JAX package's are with x64
+    off, so past ~1e6 samples they resolve only 1/16 sample, exactly as
+    JAX's do; `downscale_lines_split` keeps sub-sample precision there.
+    They are rounded as the JAX package's compiled graph rounds them (see
+    `downscale_lines_split`): k / outwidth is k times the float32
+    reciprocal, and the multiply-add is fused (one rounding, done here as
+    the float64 sum cast back)."""
+    li = lineinfo.to(data.dtype)
+    starts = li[:nlines]
+    delta = li[1:nlines + 1] - starts
+    k = torch.arange(outwidth, dtype=data.dtype, device=data.device)
+    kw = k * (1.0 / outwidth)
+    pos = (starts[:, None].double() + delta[:, None].double()
+           * kw.double()).to(data.dtype)
+    out = sample_cubic(data, pos)
+    if wow_scale is not None:
+        out = out * wow_scale[:, None]
+    return out
+
+
 def downscale_lines_split(data: torch.Tensor, lli: torch.Tensor,
                           llf: torch.Tensor, outwidth: int, nlines: int,
                           wow_scale: Optional[torch.Tensor] = None,

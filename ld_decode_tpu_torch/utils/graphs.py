@@ -29,6 +29,14 @@ kernel's wrapper, and a replay runs no Python: the cache records each
 counter's increase during the capture, takes it back (a capture launches
 nothing) and adds it on every replay, so the counts equal an eager run's.
 
+A capture bakes into the graph, besides its tensors, the function's code
+and every plain Python value it reads (a number, a string).  The cache
+records the code and the plain values the function closes over or takes
+as defaults at the capture, and a later call of the key whose function
+differs there raises (`FrozenValueError`), in the emulated mode too: such
+a value must be a dynamic input or part of the key.  Values read through
+an object's attributes are not seen.
+
 A capture that fails raises: on the card nothing falls back to eager.  On
 the CPU the cache runs the function eagerly (mode 'eager').  Mode
 'emulate', which only a caller can ask for and only off the card, keeps
@@ -44,6 +52,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
@@ -70,6 +79,34 @@ def _set_counts(values: Sequence[int]):
         setattr(obj, name, v)
 
 
+class FrozenValueError(RuntimeError):
+    """A call of a captured key whose function closes over another plain
+    Python value (or other code) than at the capture: a replay would run
+    the captured one."""
+
+
+def _plain(v) -> bool:
+    if isinstance(v, tuple):
+        return all(_plain(x) for x in v)
+    return isinstance(v, (bool, int, float, complex, str, bytes, type(None),
+                          np.generic))
+
+
+def _baked(fn: Callable) -> tuple:
+    """What a capture of fn bakes into the graph besides tensors: its code
+    and the plain values (numbers, strings, None, tuples of them) it
+    closes over or defaults to, each by its repr; other objects are
+    marked by position only."""
+    vals = list(getattr(fn, '__defaults__', None) or ())
+    for cell in getattr(fn, '__closure__', None) or ():
+        try:
+            vals.append(cell.cell_contents)
+        except ValueError:               # an empty cell
+            vals.append(None)
+    return (getattr(fn, '__code__', None),
+            tuple(repr(v) if _plain(v) else None for v in vals))
+
+
 def as_cache(graphs, device) -> 'GraphCache':
     """A caller's `graphs` argument as a cache: a GraphCache as given,
     True the device's default mode, False eager."""
@@ -88,6 +125,7 @@ class _Graph:
     graph: Optional[Any] = None          # torch.cuda.CUDAGraph, 'emulate'
     credit: List[int] = field(default_factory=list)
     capture_s: float = 0.0
+    baked: tuple = ()                    # _baked(fn) at the capture
 
 
 def _signature(t: torch.Tensor) -> tuple:
@@ -150,6 +188,12 @@ class GraphCache:
                 return fn(*inputs)
             g = self._capture(full, fn, inputs)
         else:
+            if _baked(fn) != g.baked:
+                raise FrozenValueError(
+                    f'graph key {key!r}: the function closes over other '
+                    f'plain values (or is other code) than at its capture, '
+                    f'which a replay would repeat; pass such a value as a '
+                    f'tensor input or put it in the key')
             for s, x in zip(g.static_in, inputs):
                 s.copy_(x)
         self._replay(g, fn)
@@ -157,7 +201,7 @@ class GraphCache:
 
     def _capture(self, full: tuple, fn: Callable,
                  inputs: Sequence[torch.Tensor]) -> _Graph:
-        g = _Graph(static_in=[x.clone() for x in inputs])
+        g = _Graph(static_in=[x.clone() for x in inputs], baked=_baked(fn))
         before = _counts()
         t0 = time.perf_counter()
         if self.mode == 'graph':

@@ -75,6 +75,9 @@ def parse_args(argv=None):
     p.add_argument('--device', default='cuda',
                    help='torch device to decode on (default cuda; pass '
                         '"--device cpu" to run on the CPU)')
+    p.add_argument('--no-graphs', dest='graphs', action='store_false',
+                   help='run the device programs eagerly instead of '
+                        'replaying them as CUDA graphs on the card')
     p.add_argument('-q', '--quiet', action='store_true',
                    help='warnings and errors only')
     p.add_argument('-d', '--debug', action='store_true',
@@ -119,7 +122,8 @@ def main(argv=None):
                            segment_samples=args.segment_mb * (1 << 20) // 2,
                            despackle=args.despackle, rot_level=args.rot,
                            flip_fields=args.flip, bff=args.bff,
-                           device=device, pic_mode=args.pic_mode)
+                           device=device, pic_mode=args.pic_mode,
+                           graphs=args.graphs)
 
         if args.seek >= 0:
             nextsample = FR.findframe(fd, framer, args.seek,

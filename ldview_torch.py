@@ -43,7 +43,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
+def main(argv=None, *, graphs: bool = False):
+    """graphs: whether the decode and the comb replay CUDA graphs.  The
+    CLI runs eagerly: one frame runs each program once or twice, and its
+    captures cost more than they save (measured in `chip_smoke.py`, which
+    passes graphs=True for the comparison; README)."""
     args = parse_args(argv)
 
     from ld_decode_tpu_torch.io import loaders as L
@@ -59,7 +63,8 @@ def main(argv=None):
     samples_per_frame = int(cfg.freq_hz / cfg.sys.fps) + 1
 
     with open(args.infile, 'rb') as fd:
-        framer = FR.Framer(cfg, bank, loader, batch=1, device=device)
+        framer = FR.Framer(cfg, bank, loader, batch=1, device=device,
+                           graphs=graphs)
         sample = args.start * samples_per_frame
         first = True
         if args.frame != '-':
@@ -81,7 +86,8 @@ def main(argv=None):
     else:
         from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig, NTSCComb
         comb = NTSCComb(CombConfig(dim=args.dim, bw=args.bw, wide=args.wide,
-                                   opticalflow=False), device=device)
+                                   opticalflow=False), device=device,
+                        graphs=graphs)
     # dim-3 wants a 3-frame ring; a static ring of the same frame is
     # exact for a single-frame preview (no motion -> pure temporal comb)
     rgb = comb.process(combined)

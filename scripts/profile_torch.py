@@ -13,11 +13,13 @@ chain's dim-3 comb (NTSC: optical flow; PAL: the temporal ring), and with
 
 The decode and the comb window run as the user's path runs them: each
 batch call and each NTSC flow-comb window replayed as a CUDA graph
-(utils/graphs.py).  --graphs profiles each of those windows twice, eager
-(graphs=False) and then replayed, and adds the host's time per call
-(the prefetcher's t_dispatch a batch, the comb's t_feed a window) and its
-launch calls (kernel launches and graph launches) beside the device's
-busy and idle share.
+(utils/graphs.py), and so do the --stream paths' device segments (the
+sequential decode's, the streaming NTSC comb's).  --graphs profiles each
+of those windows twice, eager (graphs=False) and then replayed, and adds
+the host's time per call (the prefetcher's t_dispatch a batch, the comb's
+t_feed a window; for --stream the untraced wall time of a field or a
+frame) and its launch calls (kernel launches and graph launches) beside
+the device's busy and idle share.
 
 Prints the card's name and power limit, then for each profiled window its
 wall time, the device's busy and idle share (summed kernel and copy time
@@ -140,7 +142,8 @@ def main():
         else ('NTSC', 'ramp', 52, 33046))
     cfg = DecoderConfig(system=system, freq_mhz=40.0)
     nwarm = 16
-    cap = E.encode_frames(cfg, nwarm + args.frames + 8,
+    tail = 14 if args.stream else 8
+    cap = E.encode_frames(cfg, nwarm + args.frames + tail,
                           E.EncodeSpec(pattern=pattern, cav_start_frame=900))
     bank = F.make_demod_bank(cfg, np.complex64, device='cuda')
     modes = (False, True) if args.graphs else (True,)
@@ -151,7 +154,9 @@ def main():
         for graphs in modes:
             comb_window(args, cfg, cap, bank, nblocks, start, graphs)
     if args.stream:
-        stream_windows(cfg, cap, bank, nblocks, start, fr, sample)
+        for graphs in modes:
+            stream_windows(cfg, cap, bank, nblocks, start, fr, sample,
+                           graphs)
 
 
 def _mode(graphs: bool) -> str:
@@ -224,14 +229,17 @@ def comb_window(args, cfg, cap, bank, nblocks, start, graphs):
     report(f'comb window ({_mode(graphs)})', wall, events, n, 'RGB frame')
 
 
-def stream_windows(cfg, cap, bank, nblocks, start, fr, sample):
+def stream_windows(cfg, cap, bank, nblocks, start, fr, sample, graphs):
     """The two-step path: one field of the sequential decode (a loader over
-    the capture, after two fields of warm-up), then one frame of the
-    streaming comb (after the ring and the flow carry have filled)."""
+    the capture, after six fields of warm-up: every segment's key captured,
+    both line counts), then one frame of the streaming comb (after six
+    frames: the ring, the flow carry and every key captured); each with
+    the untraced wall time of three more."""
     seq = FR.Framer(cfg, bank, loader=make_array_loader(cap), batch=1,
-                    nblocks=nblocks, device='cuda')
-    _, _, nxt = seq.readfield(None, start)
-    _, _, nxt = seq.readfield(None, nxt)
+                    nblocks=nblocks, device='cuda', graphs=graphs)
+    nxt = start
+    for _ in range(6):
+        _, _, nxt = seq.readfield(None, nxt)
     state = {'next': nxt}
 
     def field():
@@ -240,24 +248,39 @@ def stream_windows(cfg, cap, bank, nblocks, start, fr, sample):
             sys.exit('capture ended inside the profiled field')
 
     wall, events = profiled(field)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        field()
+    host = (time.perf_counter() - t0) / 3
     spf = cfg.freq_hz / cfg.sys.fps / 2
-    print(f'{cfg.system} sequential field: {spf / wall / 1e6:.2f} MSa/s '
-          f'under the profiler')
-    report('sequential field', wall, events, 1, 'field')
+    print(f'{cfg.system} sequential field ({_mode(graphs)}): '
+          f'{spf / wall / 1e6:.2f} MSa/s under the profiler, '
+          f'{host * 1e3:.3f} ms a field untraced ({spf / host / 1e6:.2f} '
+          f'MSa/s); graphs {seq.graphs.counts}')
+    report(f'sequential field ({_mode(graphs)})', wall, events, 1, 'field')
 
     frames = []
-    for _ in range(5):
+    for _ in range(11):
         rv = fr.readframe(None, sample, False)
         frames.append(rv[0])
         sample = rv[2]
-    comb = PALComb(CombPALConfig(dim=3), device='cuda') if cfg.system == 'PAL' \
-        else NTSCComb(CombConfig(dim=3), device='cuda')
-    for f in frames[:4]:
+    if cfg.system == 'PAL':
+        comb = PALComb(CombPALConfig(dim=3), device='cuda')
+    else:
+        comb = NTSCComb(CombConfig(dim=3), device='cuda', graphs=graphs)
+    for f in frames[:7]:
         comb.process(f)
-    wall, events = profiled(lambda: comb.process(frames[4]))
-    print(f'{cfg.system} streaming comb: one RGB frame, {1 / wall:.2f} '
-          f'frames/s under the profiler')
-    report('streaming comb frame', wall, events, 1, 'RGB frame')
+    wall, events = profiled(lambda: comb.process(frames[7]))
+    t0 = time.perf_counter()
+    for f in frames[8:]:
+        comb.process(f)
+    host = (time.perf_counter() - t0) / 3
+    print(f'{cfg.system} streaming comb ({_mode(graphs)}): one RGB frame, '
+          f'{1 / wall:.2f} frames/s under the profiler, {host * 1e3:.3f} ms '
+          f'a frame untraced ({1 / host:.2f} frames/s); graphs '
+          f'{getattr(comb, "graphs", None) and comb.graphs.counts}')
+    report(f'streaming comb frame ({_mode(graphs)})', wall, events, 1,
+           'RGB frame')
 
 
 if __name__ == '__main__':

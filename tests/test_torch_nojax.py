@@ -16,7 +16,12 @@ PORT_FILES = [os.path.join(d, f)
               for f in fs if f.endswith('.py')] \
     + [os.path.join(ROOT, f) for f in ('lddecode_torch.py',
                                        'ldchain_torch.py', 'ldexport_torch.py',
-                                       'ldview_torch.py', 'chip_smoke.py')]
+                                       'ldview_torch.py', 'chip_smoke.py',
+                                       os.path.join('docs',
+                                                    'devbook_torch.py'))] \
+    + [os.path.join(ROOT, 'scripts', f)
+       for f in sorted(os.listdir(os.path.join(ROOT, 'scripts')))
+       if f.endswith('_torch.py')]
 FORBIDDEN = re.compile(
     r'^\s*(import\s+jax\b|from\s+jax\b|import\s+ld_decode_tpu\b(?!_torch)'
     r'|from\s+ld_decode_tpu\b(?!_torch))', re.M)
@@ -52,7 +57,9 @@ def test_port_sources_import_no_jax():
             'ld_decode_tpu_torch/tbc/codec.py',
             'ld_decode_tpu_torch/tbc/native_codec.py',
             'ld_decode_tpu_torch/comb/comb_pal_legacy.py',
-            'ld_decode_tpu_torch/utils/graphs.py'} <= names
+            'ld_decode_tpu_torch/utils/graphs.py',
+            'docs/devbook_torch.py', 'scripts/drive_verify_torch.py',
+            'scripts/profile_torch.py'} <= names
     for path in PORT_FILES:
         with open(path) as f:
             m = FORBIDDEN.search(f.read())
@@ -190,6 +197,22 @@ outs = [cache('k', lambda x: x + 1, (torch.full((2,), float(v)),))
         for v in range(3)]
 assert cache.counts == {'eager_warmups': 1, 'captures': 1, 'replays': 2}
 assert float(outs[1][0]) == float(outs[2][0]) == 3.0
+# the last helpers, the batched finish and the port's verification script
+from ld_decode_tpu_torch.tbc import resample
+z = torch.exp(1j * torch.arange(64) * 0.5)
+fq = D.instantaneous_freq(z, 40e6)
+assert fq[0] == 0 and torch.allclose(fq[1:], torch.full((63,), 0.5 * 40e6
+                                                          / D.TAU))
+ramp = torch.arange(100, dtype=torch.float32)
+assert torch.allclose(resample.sample_cubic(ramp, torch.tensor([2.5, 50.25])),
+                      torch.tensor([2.5, 50.25]))
+assert resample.downscale_lines(ramp, torch.tensor([3., 13., 23.]), 10,
+                                2).shape == (2, 10)
+assert callable(fused.field_analyze_batch) and callable(
+    fused.field_finish_batch) and callable(fused.field_finish_core)
+import runpy
+verify = runpy.run_path('scripts/drive_verify_torch.py')
+assert verify['main'](['--device', 'cpu']) == 0
 assert not [m for m, mod in sys.modules.items() if mod is not None
             and (m in ('jax', 'ld_decode_tpu')
                  or m.startswith(('jax.', 'ld_decode_tpu.')))]
