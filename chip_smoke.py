@@ -141,12 +141,26 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      operations and launch calls a field and a frame, host ms a call,
      capture seconds a key and peak device memory both ways;
      field_finish_batch on a 16-field NTSC and PAL batch on the card
-     against the CPU (phase 5's budgets), its ms a batch and K1 launches.
+     against the CPU (phase 5's budgets), its ms a batch and K1 launches;
+ 27. the file decode across segment swaps and the last comb paths, eager
+     then graphed in one call: phase 4's and phase 10's captures tiled 5
+     times into one .lds each and decoded segmented (batch 16, the
+     smallest segment, >= 3 swaps and a zero-padded tail), .tbc and .pcm
+     bit-equal, the batch call's warm-ups and captures after the first
+     segment equal to the end's, K1 launches equal, MSa/s whole and after
+     the first frame, capture seconds, peak memory and the memory
+     reserved at each load (it must not grow by half a segment); the
+     NTSC batch comb at -F and -d 2 and the PAL batch comb at -d 3 and
+     -d 2 over the woven frames of phases 7 and 12 played twice, and the
+     streaming PAL comb (-d 3) over 12 of them, RGB48 and words bit-equal,
+     t_feed a window or ms a frame, RGB frames/s, device ops, launch
+     calls and graph launches a window, capture seconds a key.
 Every decode and chain phase runs with the default graphs on.
 The line before the last is the kernel JSON; the last line is the result.
 """
 
 import concurrent.futures
+import hashlib
 import json
 import os
 import statistics
@@ -782,7 +796,7 @@ def chain_phase(torch, np, cfg, cap, bank):
                    device='cuda', fetch_picture=False)
     comb = NTSCCombBatch(CombConfig(dim=3), device='cuda')
     cx = CXExpander()
-    rgbs, words, dev_frames = [], [], []
+    rgbs, words, dev_frames, woven = [], [], [], []
     nframes, naudio = 0, 0
 
     def emit(rgb, w):
@@ -803,6 +817,9 @@ def chain_phase(torch, np, cfg, cap, bank):
         frame = rv[0].reshape(525, 910)
         if isinstance(frame, torch.Tensor) and len(dev_frames) < 4:
             dev_frames.append(frame.clone())
+        # phase 27's comb input, held on the host until then
+        woven.append(frame.cpu() if isinstance(frame, torch.Tensor)
+                     else torch.from_numpy(frame.astype(np.int32)))
         windows.push(frame)
         nframes += 1
         if rv[1] is not None:
@@ -846,7 +863,7 @@ def chain_phase(torch, np, cfg, cap, bank):
         fail(f'only {k2_rows} of {k2} warp launches took the row path')
     if not naudio:
         fail('no CX audio')
-    return k1, k2, dev_frames
+    return k1, k2, dev_frames, woven
 
 
 def comb_parity_phase(torch, np, dev_frames):
@@ -925,7 +942,7 @@ def pal_chain_phase(torch, np, cfg, cap, bank):
                    device='cuda', fetch_picture=False)
     comb = PALCombBatch(CombPALConfig(dim=3), device='cuda')
     cx = CXExpander()
-    rgbs, words, dev_frames = [], [], []
+    rgbs, words, dev_frames, woven = [], [], [], []
     nframes, naudio = 0, 0
 
     def emit(rgb, w):
@@ -956,6 +973,7 @@ def pal_chain_phase(torch, np, cfg, cap, bank):
         # same in every frame: stamp the frame's index as the luma of a
         # patch, so that the order of the emitted frames can be read
         frame[200:216, 560:600] = 18000 + 1100 * i      # 4..95 IRE
+        woven.append(frame.cpu())            # phase 27's, on the host
         windows.push(frame)
         nframes += 1
         if rv[1] is not None:
@@ -1007,7 +1025,7 @@ def pal_chain_phase(torch, np, cfg, cap, bank):
         fail(f'K2 launched {k2} times on the PAL chain')
     if not naudio:
         fail('no CX audio')
-    return k1, dev_frames
+    return k1, dev_frames, woven
 
 
 def pal_comb_parity_phase(torch, np, dev_frames):
@@ -3217,6 +3235,292 @@ def seq_graphs_phase(torch, np, systems, d: str):
     return res, launches
 
 
+# phase 27: the file decode's graphs across segment swaps and the last
+# comb paths, eager then graphed in one call.  SEG_TILES copies of phase
+# 4's (NTSC) and phase 10's (PAL) capture, each cut to a whole number of
+# frames and colour-subcarrier cycles (SEG_TILE_SAMPLES: 48 and 40
+# frames), written in a row as one .lds and decoded segmented (batch 16)
+# at the smallest legal segment, 2x the chain horizon: >= SEG_MIN_SWAPS
+# swaps and a short zero-padded tail (the FM carriers' phase steps at
+# each join, which the decode rides).  The batch combs over the woven
+# frames of phases 7 and 12 played twice in CombWindows(8, 3), steady from
+# window COMB_STEADY on (the first window holds 8 frames and the later 10
+# where 2 stay pending, so the later key captures in window 3); the
+# streaming PAL comb (dim 3) over
+# PAL_STREAM_FRAMES of phase 12's frames, steady from frame
+# PAL_STREAM_STEADY on (its 3D key captured in the frame before)
+SEG_TILES, SEG_MIN_SWAPS = 5, 3
+SEG_TILE_SAMPLES = {'NTSC': 64_064_000, 'PAL': 64_000_000}
+COMB_STEADY, COMB_REPS = 3, 5
+PAL_STREAM_FRAMES, PAL_STREAM_STEADY = 12, 4
+
+
+def _seg_decode(torch, np, FR, CR, L, cfg, bank, path, p, graphs):
+    """The whole .lds through Framer(loader, batch 16, the smallest
+    segment, graphs=...): sha256 of the .tbc frames and the .pcm audio, K1
+    launches, MSa/s whole and after the first frame, each segment load
+    (base, real samples, the batch call's graph counts and the device
+    memory reserved before it), capture seconds, peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    CR.resample_lines_batch.launches = 0
+    fr = FR.Framer(cfg, bank, loader=L.loader_for_path(path), batch=16,
+                   nblocks=p['nblocks'], segment_samples=1, device='cuda',
+                   graphs=graphs)
+    pf = fr.prefetcher
+    set_capture, loads = pf.set_capture, []
+
+    def counted(capture, base, valid_len=None):
+        torch.cuda.synchronize()
+        loads.append(dict(base=base, valid=valid_len,
+                          counts=dict(pf.graphs.counts),
+                          reserved_mib=torch.cuda.memory_reserved() / 2**20))
+        return set_capture(capture, base, valid_len)
+
+    pf.set_capture = counted
+    tbc, pcm = hashlib.sha256(), hashlib.sha256()
+    n, sample = 0, p['start']
+    with open(path, 'rb') as fd:
+        t0 = time.perf_counter()
+        rv = fr.readframe(fd, sample, True)
+        while rv[0] is not None:
+            tbc.update(np.ascontiguousarray(rv[0]).tobytes())
+            if rv[1] is not None:
+                pcm.update(np.ascontiguousarray(rv[1]).tobytes())
+            n += 1
+            sample = rv[2]
+            if n == 1:
+                t1, s1 = time.perf_counter(), sample
+            rv = fr.readframe(fd, sample, False)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return dict(frames=n, tbc=tbc.hexdigest(), pcm=pcm.hexdigest(),
+                k1=CR.resample_lines_batch.launches,
+                msas=(sample - p['start']) / (t2 - t0) / 1e6,
+                steady=(sample - s1) / (t2 - t1) / 1e6,
+                loads=loads, seg=fr._seg_samples,
+                counts=dict(pf.graphs.counts),
+                end_reserved_mib=torch.cuda.memory_reserved() / 2**20,
+                capture_s=sum(pf.graphs.capture_seconds.values()),
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                reserved_mib=torch.cuda.max_memory_reserved() / 2**20)
+
+
+def _comb_run(torch, np, CB, comb, frames):
+    """The frames through CombWindows(comb, 8, 3) (ldchain_torch.py's
+    loop), then one more window of 8 fed and collected under the profiler
+    and COMB_REPS more timed: the RGB frames and words, RGB frames/s,
+    t_feed a window (all; from window COMB_STEADY on), the window's launch
+    profile and its host ms fed and collected (median; the collect waits
+    for the copies)."""
+    out = []
+    windows = CB.CombWindows(comb, 8, 3, lambda r, w: out.append((r, w)))
+    torch.cuda.synchronize()
+    t0, mark = time.perf_counter(), None
+    for f in frames:
+        if mark is None and comb.stats['windows'] == COMB_STEADY:
+            mark = dict(comb.stats)
+        windows.push(f)
+    windows.drain()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = comb.stats
+    res = dict(out=out, fps=len(out) / dt,
+               feed_ms=st['t_feed'] / st['windows'] * 1e3,
+               steady_feed_ms=(st['t_feed'] - mark['t_feed'])
+               / (st['windows'] - mark['windows']) * 1e3,
+               windows=st['windows'])
+    win = torch.stack(frames[:8])
+    res['prof'] = _launch_profile(torch,
+                                  lambda: comb.collect(comb.feed(win)))
+    times = []
+    for _ in range(COMB_REPS):
+        t0 = time.perf_counter()
+        comb.collect(comb.feed(win))
+        times.append(time.perf_counter() - t0)
+    res['window_ms'] = statistics.median(times) * 1e3
+    return res
+
+
+def _key_windows(cache) -> dict:
+    """Capture seconds by key name and window length."""
+    return {f'{full[0][0]} M={full[2][0][0][0]}': sec
+            for full, sec in cache.capture_seconds.items()}
+
+
+def _pal_stream(torch, np, TP, frames, graphs):
+    """PALComb(dim 3) over the frames and its flush: the RGB frames, ms a
+    frame over all and from PAL_STREAM_STEADY on, the cache."""
+    comb = TP.PALComb(TP.CombPALConfig(dim=3), device='cuda', graphs=graphs)
+    out, times = [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        r = comb.process(f)
+        times.append(time.perf_counter() - t0)
+        if r is not None:
+            out.append(r)
+    out.append(comb.flush())
+    return dict(out=out, ms=sum(times) / len(times) * 1e3,
+                steady_ms=statistics.mean(times[PAL_STREAM_STEADY:]) * 1e3,
+                counts=dict(comb.graphs.counts),
+                key_s={'3D' if full[0][2] else '2D': sec for full, sec
+                       in comb.graphs.capture_seconds.items()})
+
+
+def segment_graphs_phase(torch, np, systems, woven, d: str):
+    """systems: {name: (cfg, cap, bank)}; woven: {name: the chain phases'
+    woven frames on the host}.  Returns the numbers PERF.md keeps and the
+    graphed segmented decodes' K1 launches."""
+    phase('27 segments and combs: the file decode across segment swaps, '
+          'the no-flow / 2D NTSC and PAL batch combs, the streaming PAL '
+          'comb, graphs vs eager')
+    from ld_decode_tpu_torch.comb import batch as CB
+    from ld_decode_tpu_torch.comb import comb_ntsc as TC
+    from ld_decode_tpu_torch.comb import comb_pal as TP
+    from ld_decode_tpu_torch.io import loaders as L
+    from ld_decode_tpu_torch.io import native_unpack as NU
+    from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    from ld_decode_tpu_torch.tbc import framer as FR
+    res, k1 = {}, {}
+    for system in ('NTSC', 'PAL'):
+        cfg, cap, bank = systems[system]
+        p = DECODE_PATHS[system]
+        tile = cap[:SEG_TILE_SAMPLES[system]]
+        if tile.shape[0] != SEG_TILE_SAMPLES[system]:
+            fail(f'{system} segments: the capture holds {cap.shape[0]} '
+                 f'samples, under a tile')
+        path = os.path.join(d, f'tiled_{system}.lds')
+        packed = NU.pack_4_40(tile).tobytes()
+        with open(path, 'wb') as f:
+            for _ in range(SEG_TILES):
+                f.write(packed)
+        del packed
+        n_file = SEG_TILES * tile.shape[0]
+        e = _seg_decode(torch, np, FR, CR, L, cfg, bank, path, p, False)
+        g = _seg_decode(torch, np, FR, CR, L, cfg, bank, path, p, True)
+        os.remove(path)
+        seg = g['seg']
+        label = f'{system} segmented file'
+        if (e['tbc'], e['pcm'], e['frames']) != (g['tbc'], g['pcm'],
+                                                 g['frames']):
+            fail(f'{label}: the graphed .tbc/.pcm differ from the eager '
+                 f'ones ({e["frames"]} vs {g["frames"]} frames)')
+        spf = cfg.freq_hz / cfg.sys.fps
+        first, end = g['loads'][1]['counts'], g['counts']
+        swaps = len(g['loads']) - 1
+        print(f'{label}: {n_file} samples ({SEG_TILES} tiles), segment '
+              f'{seg} samples, {swaps} swaps, the tail segment '
+              f'{g["loads"][-1]["valid"]} real samples (zero-padded to '
+              f'{seg}); {g["frames"]} frames, .tbc and .pcm bit-equal both '
+              f'ways (sha256 {g["tbc"][:16]}, {g["pcm"][:16]}); K1 '
+              f'{e["k1"]} eager, {g["k1"]} graphed')
+        print(f'  graph counts after the first segment {first}, at the '
+              f'end {end}; capture {g["capture_s"]:.3f} s')
+        for name, r in (('eager', e), ('graphs', g)):
+            grow = r['end_reserved_mib'] - r['loads'][1]['reserved_mib']
+            r['reserved_growth_mib'] = grow
+            print(f'  {name:6s}: {r["msas"]:.2f} MSa/s ({r["steady"]:.2f} '
+                  f'after the first frame); peak {r["peak_mib"]:.1f} MiB '
+                  f'allocated, {r["reserved_mib"]:.1f} MiB reserved; '
+                  f'reserved at each load '
+                  + ', '.join(f'{x["reserved_mib"]:.1f}' for x in r['loads'])
+                  + f', at the end {r["end_reserved_mib"]:.1f} MiB (grew '
+                  f'{grow:.1f} MiB after the first segment)')
+            if grow > seg * 4 / 2**20 / 2:
+                fail(f'{label} ({name}): reserved memory grew by {grow:.1f} '
+                     f'MiB over the swaps (a segment is '
+                     f'{seg * 4 / 2**20:.1f} MiB)')
+        if swaps < SEG_MIN_SWAPS or g['loads'][-1]['valid'] >= seg \
+                or any(x['valid'] != seg for x in g['loads'][:-1]):
+            fail(f'{label}: {swaps} swaps, loads '
+                 f'{[x["valid"] for x in g["loads"]]}: want >= '
+                 f'{SEG_MIN_SWAPS} full segments after the first and a '
+                 f'short tail')
+        if g['frames'] < 0.9 * (n_file - p['start']) / spf:
+            fail(f'{label}: {g["frames"]} frames of a '
+                 f'{(n_file - p["start"]) / spf:.0f}-frame file')
+        if (first['eager_warmups'], first['captures']) != (
+                end['eager_warmups'], end['captures']) \
+                or first['captures'] < 1 or end['replays'] <= first['replays']:
+            fail(f'{label}: graph counts after the first segment {first}, '
+                 f'at the end {end}')
+        if e['k1'] != g['k1'] or g['k1'] == 0:
+            fail(f'{label}: K1 eager {e["k1"]}, graphed {g["k1"]}')
+        k1[system] = g['k1']
+        res[label] = dict(
+            swaps=swaps, seg=seg, tail=g['loads'][-1]['valid'],
+            frames=g['frames'], first=first, end=end,
+            capture_s=g['capture_s'],
+            **{k: {q: r[q] for q in ('msas', 'steady', 'peak_mib',
+                                     'reserved_mib', 'reserved_growth_mib')}
+               for k, r in (('eager', e), ('graphs', g))})
+
+    # the batch combs over the chains' woven frames, played twice
+    for label, make, frames in (
+            ('NTSC batch comb -F', lambda g: CB.NTSCCombBatch(
+                TC.CombConfig(dim=3, opticalflow=False), device='cuda',
+                graphs=g), woven['NTSC']),
+            ('NTSC batch comb -d 2', lambda g: CB.NTSCCombBatch(
+                TC.CombConfig(dim=2), device='cuda', graphs=g),
+             woven['NTSC']),
+            ('PAL batch comb -d 3', lambda g: CB.PALCombBatch(
+                TP.CombPALConfig(dim=3), device='cuda', graphs=g),
+             woven['PAL']),
+            ('PAL batch comb -d 2', lambda g: CB.PALCombBatch(
+                TP.CombPALConfig(dim=2), device='cuda', graphs=g),
+             woven['PAL'])):
+        dev = [f.cuda() for f in frames + frames]
+        ce, cg = make(False), make(True)
+        e = _comb_run(torch, np, CB, ce, dev)
+        g = _comb_run(torch, np, CB, cg, dev)
+        del dev
+        _same(np, f'{label} RGB48 and words', e['out'], g['out'])
+        c = cg.graphs.counts
+        if c['replays'] < 2 or g['prof']['graph_launch_calls'] != 1:
+            fail(f'{label}: graphs {c}, {g["prof"]["graph_launch_calls"]} '
+                 f'graph launches a window')
+        key_s = _key_windows(cg.graphs)
+        print(f'{label}, {len(frames)} frames played twice -> '
+              f'{len(g["out"])} RGB frames in {g["windows"]} windows: RGB48 '
+              f'and words bit-equal; graphs {c}; capture s a key '
+              + ', '.join(f'{k} {v:.3f}' for k, v in key_s.items()))
+        for name, r in (('eager', e), ('graphs', g)):
+            pr = r['prof']
+            print(f'  {name:6s}: {r["fps"]:.2f} RGB frames/s, t_feed '
+                  f'{r["feed_ms"]:.3f} ms a window ({r["steady_feed_ms"]:.3f}'
+                  f' from window {COMB_STEADY}); one more window of 8: '
+                  f'{pr["device_ops"]} device ops, '
+                  f'{pr["kernel_launch_calls"]} kernel launch calls, '
+                  f'{pr["graph_launch_calls"]} graph launches; fed and '
+                  f'collected in {r["window_ms"]:.3f} ms (median of '
+                  f'{COMB_REPS}: {8e3 / r["window_ms"]:.2f} RGB frames/s)')
+        res[label] = dict(counts=c, key_s=key_s, **{
+            k: {q: r[q] for q in ('fps', 'feed_ms', 'steady_feed_ms',
+                                  'prof', 'window_ms')}
+            for k, r in (('eager', e), ('graphs', g))})
+
+    # the streaming PAL comb (ldexport_torch.py --pal)
+    frames = [f.numpy() for f in woven['PAL'][:PAL_STREAM_FRAMES]]
+    e = _pal_stream(torch, np, TP, frames, False)
+    g = _pal_stream(torch, np, TP, frames, True)
+    _same(np, 'PAL streaming comb RGB48', e['out'], g['out'])
+    if g['counts']['replays'] < 2 or len(g['out']) != len(frames):
+        fail(f'PAL streaming comb: graphs {g["counts"]}, '
+             f'{len(g["out"])} RGB frames of {len(frames)}')
+    print(f'PAL streaming comb -d 3, {len(frames)} frames and the flush: '
+          f'RGB48 bit-equal; graphs {g["counts"]}; capture s a key '
+          + ', '.join(f'{k} {v:.3f}' for k, v in g['key_s'].items()))
+    for name, r in (('eager', e), ('graphs', g)):
+        print(f'  {name:6s}: {r["ms"]:.3f} ms a frame ({r["steady_ms"]:.3f} '
+              f'from frame {PAL_STREAM_STEADY})')
+    res['PAL streaming comb'] = dict(
+        counts=g['counts'], key_s=g['key_s'],
+        **{k: {q: r[q] for q in ('ms', 'steady_ms')}
+           for k, r in (('eager', e), ('graphs', g))})
+    return res, k1
+
+
 def main():
     if sys.argv[1:2] == ['--mesh-rank']:
         return mesh_rank(sys.argv[2:])
@@ -3248,7 +3552,7 @@ def run(torch, np, work: str):
     parity_phase(torch, np, cfg, bank, fr)
     ntsc_cli = cli_phase(np, cap, cfg, _subdir(work, 'ntsc'))
     del fr
-    k1, k2, dev_frames = chain_phase(torch, np, cfg, cap, bank)
+    k1, k2, dev_frames, woven = chain_phase(torch, np, cfg, cap, bank)
     comb_parity_phase(torch, np, dev_frames)
     chain_cli_phase(np, cap, cfg)
     del dev_frames
@@ -3258,7 +3562,8 @@ def run(torch, np, work: str):
                  title='11 PAL: card vs cpu, one batch', start=PAL_START,
                  nblk=56, tail_rows=PAL_TAIL_ROWS)
     del pfr
-    pal_k1, pal_frames = pal_chain_phase(torch, np, pcfg, pcap, pbank)
+    pal_k1, pal_frames, pal_woven = pal_chain_phase(torch, np, pcfg, pcap,
+                                                    pbank)
     pal_comb_parity_phase(torch, np, pal_frames)
     pal_cli = cli_phase(np, pcap, pcfg, _subdir(work, 'pal'),
                         title='14 PAL cli')
@@ -3289,6 +3594,10 @@ def run(torch, np, work: str):
     seq_graphs, seq_launches = seq_graphs_phase(torch, np, systems,
                                                 _subdir(work, 'seqgraphs'))
     print('sequential graphs vs eager', json.dumps(seq_graphs))
+    seg_graphs, seg_k1 = segment_graphs_phase(
+        torch, np, systems, {'NTSC': woven, 'PAL': pal_woven},
+        _subdir(work, 'seg'))
+    print('segments and combs, graphs vs eager', json.dumps(seg_graphs))
     if 'jax' in sys.modules:
         fail('jax was imported')
 
@@ -3304,7 +3613,9 @@ def run(torch, np, work: str):
           f'decode: NTSC {sharded["NTSC"]} + burst window '
           f'{sharded["NTSC burst window"]}, PAL {sharded["PAL"]} (ranks '
           f'summed, by world size); K1 on the --pic-mode codec decode: '
-          f'NTSC {codec_k1["NTSC"]}, PAL {codec_k1["PAL"]}')
+          f'NTSC {codec_k1["NTSC"]}, PAL {codec_k1["PAL"]}; K1 in the '
+          f'segmented file decode (graphed): NTSC {seg_k1["NTSC"]}, PAL '
+          f'{seg_k1["PAL"]}')
     # the sharded decode is this slice's path: its `launches` are the
     # 2-rank world's, summed over the ranks
     k1_paths = {'ntsc seq decode': seq_ntsc, 'pal seq decode': seq_pal,
@@ -3319,6 +3630,8 @@ def run(torch, np, work: str):
                 'pal chain': pal_k1, 'ntsc decode': launches,
                 'ntsc chain': k1, 'ntsc codec decode': codec_k1['NTSC'],
                 'pal codec decode': codec_k1['PAL'],
+                'ntsc segmented file graphs': seg_k1['NTSC'],
+                'pal segmented file graphs': seg_k1['PAL'],
                 'sharded decode': {f'{s.lower()} {w} rank{"s" * (w > 1)}': n
                                    for s, by in sharded.items()
                                    for w, n in by.items()}}
@@ -3347,6 +3660,14 @@ def run(torch, np, work: str):
         dict(name='resample_lines_batch[pal codec]',
              shape='pal picture (16, 313, 1135), --pic-mode codec',
              launches=codec_k1['PAL'], **k1_common,
+             **kres['K1']['pal-width picture']),
+        dict(name='resample_lines_batch[ntsc segmented]',
+             shape='ntsc picture (16, 263, 910), segmented file, graphed',
+             launches=seg_k1['NTSC'] // 3, **k1_common,
+             **kres['K1']['ntsc picture']),
+        dict(name='resample_lines_batch[pal segmented]',
+             shape='pal picture (16, 313, 1135), segmented file, graphed',
+             launches=seg_k1['PAL'], **k1_common,
              **kres['K1']['pal-width picture']),
         dict(name='resample_lines_batch[ntsc shard]',
              shape='ntsc shard picture (8, 263, 910)',

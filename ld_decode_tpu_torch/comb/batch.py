@@ -21,10 +21,13 @@ frame; dim 3 emits frame 0 as 2D at once, then frame e from the (e-1, e,
 e+1) ring, keeps the last two pending, and `flush()` returns the final
 frame as 2D.
 
-In flow mode the window's device program (`_comb_window_flow`: the flow
-luma, the Farnebäck chain, the comb), after the burst AGC's host loop, is
-replayed as one CUDA graph per window length on the card
-(utils/graphs.py), as the JAX package jits `_comb_window_of`.
+Each window's device program is replayed as one CUDA graph per mode and
+window length on the card (utils/graphs.py), as the JAX package jits its
+window functions: NTSC's flow window (`_comb_window_flow`: the flow luma,
+the Farnebäck chain, the comb), ring window (dim 3 without flow) and
+simple window (dims 1/2), each after the burst AGC's host loop, whose
+levels are a dynamic input and whose carry stays on the host; PAL's
+simple and 3D windows, frame 0's 2D head and the 2D flush frame.
 
 The RGB48 output stays an int32 tensor until `collect`, which copies it to
 the host as np.uint16 (np.uint8 with out8).  With codec=True the window's
@@ -96,19 +99,22 @@ def _comb_window_flow(win: torch.Tensor, flow0: torch.Tensor,
     return _crop(rgb, cfg), cur[:, 0, :16], flow
 
 
-def _comb_window_ring(win: torch.Tensor, ab0: float, cfg: CombConfig):
-    """No-opticalflow dim 3: emit win[1..M-2] from (e-1, e, e+1) rings."""
+def _comb_window_ring(win: torch.Tensor, levels: torch.Tensor,
+                      cfg: CombConfig):
+    """No-opticalflow dim 3: emit win[1..M-2] from (e-1, e, e+1) rings;
+    `levels` are the AGC levels of win[1:-1] (`burst_levels`, before).
+    Returns (rgb, words)."""
     prv, cur, nxt = win[:-2], win[1:-1], win[2:]
-    levels, ab = burst_levels(cur, ab0, cfg)
     rgb, _ = _frame_core(cur, prv, nxt, levels, cfg)
-    return _crop(rgb, cfg), cur[:, 0, :16], ab
+    return _crop(rgb, cfg), cur[:, 0, :16]
 
 
-def _comb_window_simple(win: torch.Tensor, ab0: float, cfg: CombConfig):
-    """dims 1/2: every frame emits; only the AGC chains."""
-    levels, ab = burst_levels(win, ab0, cfg)
+def _comb_window_simple(win: torch.Tensor, levels: torch.Tensor,
+                        cfg: CombConfig):
+    """dims 1/2: every frame emits; only the AGC chains (`levels`, of
+    win).  Returns (rgb, words)."""
     rgb, _ = _frame_core(win, win, win, levels, cfg)
-    return _crop(rgb, cfg), win[:, 0, :16], ab
+    return _crop(rgb, cfg), win[:, 0, :16]
 
 
 def _window_tensor(frames, device, lines: int, width: int) -> torch.Tensor:
@@ -207,8 +213,8 @@ class NTSCCombBatch(_RgbCodecMixin):
                  device=DEFAULT_DEVICE, codec: bool = False,
                  graphs: Union[bool, GraphCache] = True):
         """codec=True sends the RGB through the lossless codec (module
-        docstring).  graphs=True (the default) replays the flow mode's
-        window program (`_comb_window_flow`) as one CUDA graph per window
+        docstring).  graphs=True (the default) replays each window's
+        device program (flow, ring or simple) as one CUDA graph per window
         length on the card (utils/graphs.py; eager on the CPU);
         graphs=False runs it eagerly; a GraphCache is used as given."""
         if cfg.has_debug:
@@ -237,11 +243,17 @@ class NTSCCombBatch(_RgbCodecMixin):
 
     def _feed(self, dev: torch.Tensor):
         cfg = self.cfg
+        # replayed, the outputs are the graph's static tensors: the RGB
+        # and the words are copied out (or encoded) next on the stream, and
+        # the flow carry is read only by the next window's copy into its
+        # static input, before that window's replay
         if cfg.dim < 3:
             if not dev.shape[0]:
                 return None
-            rgb, words, self.aburstlev = _comb_window_simple(
-                dev, self.aburstlev, cfg)
+            levels, self.aburstlev = burst_levels(dev, self.aburstlev, cfg)
+            rgb, words = self.graphs(
+                ('comb_window_simple', cfg),
+                lambda w, lv: _comb_window_simple(w, lv, cfg), (dev, levels))
             return self._fetch(rgb, words)
 
         if not self._started and cfg.opticalflow and dev.shape[0]:
@@ -260,17 +272,16 @@ class NTSCCombBatch(_RgbCodecMixin):
         if cfg.opticalflow:
             levels, self.aburstlev = burst_levels(dev[:-1], self.aburstlev,
                                                   cfg)
-            # replayed, the outputs are the graph's static tensors: the
-            # RGB and the words are copied out (or encoded) next on the
-            # stream, and the flow carry is read only by the next window's
-            # copy into its static input, before that window's replay
             rgb, words, self._flow = self.graphs(
                 ('comb_window_flow', cfg),
                 lambda w, f, lv: _comb_window_flow(w, f, lv, cfg),
                 (dev, self._flow, levels))
         else:
-            rgb, words, self.aburstlev = _comb_window_ring(
-                dev, self.aburstlev, cfg)
+            levels, self.aburstlev = burst_levels(dev[1:-1], self.aburstlev,
+                                                  cfg)
+            rgb, words = self.graphs(
+                ('comb_window_ring', cfg),
+                lambda w, lv: _comb_window_ring(w, lv, cfg), (dev, levels))
         return self._fetch(rgb, words)
 
     def _fetch(self, rgb: torch.Tensor, words: torch.Tensor):
@@ -303,13 +314,18 @@ def _pal_window_3d(win: torch.Tensor, cfg: CombPALConfig):
 class PALCombBatch(_RgbCodecMixin):
     """Batched PAL comb with NTSCCombBatch's feed/collect protocol;
     `collect` returns (rgb_list, [None] * n): PAL frames carry no pulldown
-    words.  codec=True as NTSCCombBatch's."""
+    words.  codec=True and graphs= as NTSCCombBatch's: each window
+    function (`_pal_window_simple`, `_pal_window_3d`) is one CUDA graph
+    per window length, frame 0's 2D head and the 2D flush frame the simple
+    one's key at one frame."""
 
     def __init__(self, cfg: CombPALConfig = CombPALConfig(),
                  out8: bool = False, device=DEFAULT_DEVICE,
-                 codec: bool = False):
+                 codec: bool = False,
+                 graphs: Union[bool, GraphCache] = True):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.graphs = as_cache(graphs, self.device)
         self._pend: Optional[torch.Tensor] = None   # (k, Y, X), k <= 2
         self._first = True
         self._init_copies(out8, codec)
@@ -325,15 +341,22 @@ class PALCombBatch(_RgbCodecMixin):
         finally:
             self.stats['t_feed'] += time.perf_counter() - t0
 
-    def _feed(self, dev: torch.Tensor):
+    def _window(self, fn, win: torch.Tensor) -> torch.Tensor:
+        """fn(win, cfg) through the cache, one key a window function and
+        length.  Replayed, the RGB is the graph's static tensor, read next
+        on the stream (the copies, the head's cat)."""
         cfg = self.cfg
-        if cfg.dim < 3:
+        return self.graphs((fn.__name__, cfg), lambda w: fn(w, cfg), (win,))
+
+    def _feed(self, dev: torch.Tensor):
+        if self.cfg.dim < 3:
             if not dev.shape[0]:
                 return None
-            return self._fetch(_pal_window_simple(dev, cfg))
+            return self._fetch(self._window(_pal_window_simple, dev))
         head = None
         if self._first and dev.shape[0]:
-            head = _pal_window_simple(dev[:1], cfg)      # frame 0: 2D
+            # frame 0: 2D
+            head = self._window(_pal_window_simple, dev[:1])
             self._first = False
         if self._pend is not None:
             dev = torch.cat([self._pend, dev]) if dev.shape[0] \
@@ -342,7 +365,7 @@ class PALCombBatch(_RgbCodecMixin):
             self._pend = dev
             return self._fetch(head) if head is not None else None
         self._pend = dev[-2:]
-        rgb = _pal_window_3d(dev, cfg)
+        rgb = self._window(_pal_window_3d, dev)
         if head is not None:
             rgb = torch.cat([head, rgb])
         return self._fetch(rgb)
@@ -364,7 +387,7 @@ class PALCombBatch(_RgbCodecMixin):
                 or self._pend.shape[0] < 2:
             return None
         return self.collect(self._fetch(
-            _pal_window_simple(self._pend[-1:], self.cfg)))[0][0]
+            self._window(_pal_window_simple, self._pend[-1:])))[0][0]
 
 
 class CombWindows:

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -42,7 +42,9 @@ from ld_decode_tpu_torch.comb.comb_ntsc import (FILTERS, _shift_left,
                                                 chroma_lpf_pair)
 from ld_decode_tpu_torch.tbc.sync import first_true
 from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
+from ld_decode_tpu_torch.utils.device import constant
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
+from ld_decode_tpu_torch.utils.graphs import GraphCache, as_cache
 
 PAL_Y, PAL_X = 625, 1135
 IRESCALE = 376.32            # (0xd300-0x0100)/(100+42.857): the PAL scale
@@ -163,11 +165,12 @@ def split3d_pal(raw, prev_raw, next_raw, cfg: CombPALConfig):
     luma_d = ((dp[..., :-4] + 2.0 * d + dp[..., 4:]) * 0.25).abs() * 2.0
     luma_d = torch.where(_col_mask(4, PAL_X, dev), luma_d, 0.0)
     # convolve(row, b, 'full')[:PAL_X]: F.conv1d correlates, so the taps
-    # are flipped; float32 throughout (TF32 is off package-wide)
+    # are flipped; float32 throughout (TF32 is off package-wide).  The taps
+    # are a per-device constant: a CUDA graph capture may not copy them
+    # from host memory
     b = FILTERS['lp3d']
     nb = len(b)
-    w = torch.as_tensor(np.ascontiguousarray(b[::-1]), dtype=luma_d.dtype,
-                        device=dev).reshape(1, 1, nb)
+    w = constant(b[::-1], luma_d.dtype, dev).reshape(1, 1, nb)
     k = F.conv1d(F.pad(luma_d.reshape(-1, 1, PAL_X), (nb - 1, 0)),
                  w).reshape(luma_d.shape)
     k = torch.roll(k, -8, dims=-1)       # the FIR's group delay; it wraps
@@ -384,14 +387,31 @@ class PALComb:
     final frame (2D).  Every frame is emitted exactly once, in order."""
 
     def __init__(self, cfg: CombPALConfig = CombPALConfig(),
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE,
+                 graphs: Union[bool, GraphCache] = True):
+        """graphs=True (the default) replays `comb_pal_frame` as a CUDA
+        graph on the card, one key for the 2D frames and one for the 3D
+        ones (utils/graphs.py; eager on the CPU), as the JAX package jits
+        it; graphs=False runs it eagerly, for comparisons; a GraphCache is
+        used as given."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.graphs = as_cache(graphs, self.device)
         self._ring: list = []
 
     def _comb(self, cur, prev=None, nxt=None) -> np.ndarray:
-        rgb, _ = comb_pal_frame(cur, self.cfg, prev, nxt)
-        return rgb.cpu().numpy().astype(np.uint16)
+        cfg = self.cfg
+        if prev is None:
+            rgb = self.graphs(('comb_pal_frame', cfg, False),
+                              lambda c: comb_pal_frame(c, cfg)[0], (cur,))
+        else:
+            rgb = self.graphs(('comb_pal_frame', cfg, True),
+                              lambda c, p, n: comb_pal_frame(c, cfg, p,
+                                                             n)[0],
+                              (cur, prev, nxt))
+        # a copy, also on the CPU: replayed, the RGB is the graph's static
+        # tensor, which the next frame overwrites
+        return rgb.to('cpu', copy=True).numpy().astype(np.uint16)
 
     def process(self, framebuf: np.ndarray):
         """RGB for one input frame, or None while the dim-3 ring fills."""

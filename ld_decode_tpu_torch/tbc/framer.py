@@ -26,15 +26,29 @@ from ld_decode_tpu_torch.tbc import fused as FU
 from ld_decode_tpu_torch.tbc.field import FieldDecoder
 from ld_decode_tpu_torch.tbc.pipeline import FieldPrefetcher
 
-def to_device_capture(samples: np.ndarray, device) -> torch.Tensor:
-    """Raw capture samples -> the resident float32 capture.  .r16 captures
+def to_device_capture(samples: np.ndarray, device,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Raw capture samples -> the float32 device capture.  .r16 captures
     are signed and zero-centred: they are recentred to unsigned 16-bit
     like every other format (a DC shift is invisible to the FM demod's RF
-    bandpass).  float32 holds every 16-bit sample exactly."""
+    bandpass).  float32 holds every 16-bit sample exactly.
+
+    out: the segmented Framer's resident buffer, allocated once for the
+    whole file.  The samples are copied into its head in place (a copy on
+    the stream, so it follows any queued replay still reading the old
+    contents) and the rest is zeroed, the JAX package's np.pad to the
+    constant segment shape: the batch call's graphs read the buffer in
+    place, so they survive every segment swap."""
     arr = np.asarray(samples)
     if np.issubdtype(arr.dtype, np.signedinteger):
         arr = arr.astype(np.int32) + 32768
-    return torch.from_numpy(arr.astype(np.float32)).to(device)
+    host = torch.from_numpy(arr.astype(np.float32))
+    if out is None:
+        return host.to(device)
+    n = host.shape[0]
+    out[:n].copy_(host)
+    out[n:].zero_()
+    return out
 
 
 def weave_device(pa: torch.Tensor, ia: int, pb: torch.Tensor, ib: int,
@@ -82,8 +96,10 @@ class Framer:
         Either way readframe returns no frame (None) and its fields.
 
         batch > 1: batches of `batch` speculative fields run through the
-        device pipeline, a loader's reads going into a sliding
-        device-resident segment of `segment_samples`; the audio carry
+        device pipeline, a loader's reads going into a sliding segment of
+        `segment_samples` kept in one device buffer for the whole file
+        (the tail zero-padded to its size, as the JAX package pads it), so
+        the batch call's graphs survive the swaps; the audio carry
         advances per field.  fetch_picture=False is the chain mode: the
         fields' pictures stay on the device and readframe returns the woven
         frame as a device tensor (int32) for the comb.  pic_mode ('auto',
@@ -135,7 +151,9 @@ class Framer:
                                               graphs=self.graphs)
         if self.prefetcher is not None and self.capture_dev is None:
             if segment_samples <= 0:
-                segment_samples = 256 << 20      # 1 GiB of float32
+                # one buffer of 1 GiB of float32, allocated at the first
+                # load and refilled in place at every swap
+                segment_samples = 256 << 20
             # lookahead the chain needs resident beyond any request
             horizon = ((self.prefetcher.DEPTH + 1) * batch
                        * self.prefetcher.field_pitch
@@ -145,6 +163,7 @@ class Framer:
             self._seg_base = -1                  # nothing loaded yet
             self._seg_eof = False
             self._seg_valid = 0
+            self._seg_buf = None                 # the resident buffer
 
         self.outwidth = cfg.sys.outlinelen
         self.outlines = cfg.sys.frame_lines
@@ -196,8 +215,13 @@ class Framer:
         self._seg_eof = len(data) < self._seg_samples
         self._seg_valid = len(data)
         self._seg_base = base
-        self.prefetcher.set_capture(to_device_capture(data, self.device),
-                                    base, valid_len=self._seg_valid)
+        if self._seg_buf is None:
+            self._seg_buf = torch.empty(self._seg_samples,
+                                        dtype=torch.float32,
+                                        device=self.device)
+        self.prefetcher.set_capture(
+            to_device_capture(data, self.device, out=self._seg_buf), base,
+            valid_len=self._seg_valid)
         return True
 
     def readfield(self, infile, sample: int):

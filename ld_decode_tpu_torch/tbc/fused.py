@@ -27,7 +27,7 @@ the framer's fallback for the first field, as in the JAX package;
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -570,18 +570,22 @@ def _audio_offset_chain(offset0: torch.Tensor, lcs: torch.Tensor,
 
 
 def pipeline_starts(start0, batch_index: int, nbatch: int, field_pitch: int,
-                    valid_len: int, cfg: DecoderConfig, nblocks: int,
+                    valid_len, cfg: DecoderConfig, nblocks: int,
                     device=None) -> torch.Tensor:
     """Clamped speculative window starts of fields [batch_index,
     batch_index + nbatch) of a batch chain (a shard of a sharded batch
     starts at its first field's index); windows clamp at the real end of
-    the capture (`valid_len`), so EOF repeats a start."""
+    the capture (`valid_len`, an int or a device scalar: JAX's traced
+    scalar, the real samples of a segment zero-padded to a constant
+    size), so EOF repeats a start instead of decoding the pad."""
     n_stream = D.stream_len(cfg, nblocks)
-    smax = int(valid_len) - (n_stream - cfg.blockcut)
     s0 = _scalar(start0, torch.int32, device)
+    smax = _scalar(valid_len, torch.int32, s0.device) \
+        - (n_stream - cfg.blockcut)
     ar = torch.arange(batch_index, batch_index + nbatch, dtype=torch.int32,
                       device=s0.device)
-    return (s0 + ar * field_pitch).clamp(cfg.blockcut, smax)
+    return torch.minimum((s0 + ar * field_pitch).clamp(min=cfg.blockcut),
+                         smax)
 
 
 def pipeline_analyze(capture, starts, mtf_level, bank: DemodBank,
@@ -647,14 +651,14 @@ def field_pipeline_batch(capture: torch.Tensor, start0, audio_offset0,
                          mtf_level, bank: DemodBank, cfg: DecoderConfig,
                          nblocks: int, n_audio1: int, batch: int,
                          field_pitch: int, colorlevel: float = 1.45,
-                         colorphase: float = 91.5,
-                         valid_len: Optional[int] = None,
+                         colorphase: float = 91.5, valid_len=None,
                          batch_index: int = 0, gather_carry=None,
                          codec: bool = False):
     """The whole speculative field batch in one call with no host read.
 
     capture: 1-D float32 resident capture (16-bit samples).  start0 /
-    audio_offset0 / mtf_level may be device scalars; the chained
+    audio_offset0 / mtf_level / valid_len (the capture's real samples,
+    default all of it) may be device scalars; the chained
     (next_start0, next_offset0) come back as device scalars, so
     consecutive batches chain on the device.  Returns (outputs dict of
     (batch, ...) tensors, next_start0, next_offset0).

@@ -32,11 +32,14 @@ The batch call is the JAX package's jitted program: on the card it runs
 through a `utils/graphs.py::GraphCache`, keyed by its static arguments and
 the resident capture, so a key's first call runs eagerly, its second is
 captured as a CUDA graph and every later one copies (start0, offset0,
-mtf) into the graph's static inputs and replays it.  A replay's outputs
-are the graph's static tensors: the host copies queue right after it,
-and what stays on the device (the chain mode's pictures, the codec's
-dense buffers and raw fallback) is cloned.  `set_capture` drops the
-graphs, which read the old segment in place.
+mtf, valid_len) into the graph's static inputs and replays it.  A
+replay's outputs are the graph's static tensors: the host copies queue
+right after it, and what stays on the device (the chain mode's pictures,
+the codec's dense buffers and raw fallback) is cloned.  The graphs read
+the capture in place: the segmented Framer refills one buffer at every
+swap (`set_capture` keeps the graphs), and the real end of a zero-padded
+tail segment, `valid_len`, is a dynamic input (JAX's traced `valid_len`),
+so one key serves a whole file.
 """
 
 from __future__ import annotations
@@ -164,6 +167,7 @@ class FieldPrefetcher:
         # mode, where `capture` is a sliding resident window of the file)
         self.base = 0
         self.valid_len = capture.shape[0] if capture is not None else 0
+        self._vlen_dev = None          # valid_len as a device scalar
         self.batch = batch
         self.queue: List[_Entry] = []
         cfg = decoder.cfg
@@ -195,16 +199,18 @@ class FieldPrefetcher:
     def set_capture(self, capture: torch.Tensor, base: int,
                     valid_len: Optional[int] = None):
         """Swap in a new resident segment (absolute file offset `base`).
-        The in-flight chain is relative to the old buffer, so it flushes;
-        the recently-consumed cache stays valid (absolute positions).  The
-        graphs read the old buffer in place: they are dropped with their
-        pools."""
+        The in-flight chain is relative to the old contents, so it
+        flushes; the recently-consumed cache stays valid (absolute
+        positions, host copies).  `valid_len` marks the real samples of a
+        buffer zero-padded to a constant size (the file's tail).  The
+        graphs stay: refilled in place, the buffer keeps its key (another
+        tensor is another key)."""
         self.flush()
-        self.graphs.clear()
         self.capture = capture
         self.base = int(base)
         self.valid_len = (int(valid_len) if valid_len is not None
                           else capture.shape[0])
+        self._vlen_dev = None
 
     def _pos_match(self, entries, sample: int) -> Optional[int]:
         """Index of the first entry whose decode window covers a field
@@ -239,22 +245,25 @@ class FieldPrefetcher:
         if self._mtf_dev[0] != mtf_level:
             self._mtf_dev = (mtf_level, torch.full(
                 (), mtf_level, dtype=torch.float32, device=dec.device))
+        if self._vlen_dev is None:
+            self._vlen_dev = torch.full((), self.valid_len,
+                                        dtype=torch.int32, device=dec.device)
         codec = self.fetch_picture and self._use_codec()
         # the static arguments; the capture is keyed as a tensor read
         key = ('field_pipeline_batch', id(dec.bank), dec.cfg, dec.nblocks,
                n_audio1, self.batch, self.field_pitch, dec.colorlevel,
-               dec.colorphase, self.valid_len, codec)
+               dec.colorphase, codec)
 
-        def call(s0, o0, mtf):
+        def call(s0, o0, mtf, vlen):
             return FU.field_pipeline_batch(
                 self.capture, s0, o0, mtf, dec.bank, dec.cfg, dec.nblocks,
                 n_audio1, self.batch, self.field_pitch,
                 colorlevel=dec.colorlevel, colorphase=dec.colorphase,
-                valid_len=self.valid_len, codec=codec)
+                valid_len=vlen, codec=codec)
 
-        out, nso, noo = self.graphs(key, call,
-                                    (start0, offset0, self._mtf_dev[1]),
-                                    reads=(self.capture,))
+        out, nso, noo = self.graphs(
+            key, call, (start0, offset0, self._mtf_dev[1], self._vlen_dev),
+            reads=(self.capture,))
         if self.graphs.aliased:
             # replayed, the outputs are the graph's static tensors, which
             # the next replay overwrites.  The host copies queued next are

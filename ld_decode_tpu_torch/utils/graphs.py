@@ -163,12 +163,6 @@ class GraphCache:
         its key overwrites."""
         return self.mode != 'eager'
 
-    def clear(self):
-        """Drop every graph, its pool and its static tensors (the caller's
-        in-place reads changed, e.g. a new resident capture)."""
-        self._graphs.clear()
-        self._seen.clear()
-
     def __call__(self, key, fn: Callable, inputs: Sequence[torch.Tensor],
                  reads: Sequence[torch.Tensor] = ()):
         """fn(*inputs) through the cache.  key: the call's static

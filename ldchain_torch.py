@@ -144,7 +144,8 @@ def main(argv=None):
         if args.pal_colorlpf:
             kw['colorlpf'] = True
         pcfg = CombPALConfig(**kw)
-        comb = PALCombBatch(pcfg, out8=args.write8bit, device=device)
+        comb = PALCombBatch(pcfg, out8=args.write8bit, device=device,
+                            graphs=framer.graphs)
         width, height, fps = X, pcfg.linesout, '25'
     else:
         kw.update(wide=args.wide, opticalflow=not args.no_opticalflow)
@@ -157,7 +158,7 @@ def main(argv=None):
             kw['of_3drange' if not args.no_opticalflow
                else 'p_3drange'] = args.threedrange
         comb = NTSCCombBatch(CombConfig(**kw), out8=args.write8bit,
-                             device=device)
+                             device=device, graphs=framer.graphs)
         width = X if args.wide else 744
         height = 480
         fps = '24000/1001' if args.pulldown else '30000/1001'

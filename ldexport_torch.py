@@ -248,10 +248,12 @@ def main(argv=None):
                           or args.debug_line is not None))
     if use_batch and args.pal:
         from ld_decode_tpu_torch.comb.batch import PALCombBatch
-        comb = PALCombBatch(comb.cfg, out8=args.write8bit, device=device)
+        comb = PALCombBatch(comb.cfg, out8=args.write8bit, device=device,
+                            graphs=comb.graphs)
     elif use_batch:
         from ld_decode_tpu_torch.comb.batch import NTSCCombBatch
-        comb = NTSCCombBatch(comb.cfg, out8=args.write8bit, device=device)
+        comb = NTSCCombBatch(comb.cfg, out8=args.write8bit, device=device,
+                             graphs=comb.graphs)
 
     with open(args.intbc, 'rb') as f:
         if use_batch:

@@ -5,7 +5,7 @@ route (the C++ unpack, csrc/unpack.cpp, and the numpy one).
 
     python3 scripts/loader_rate_torch.py [--samples 600000000]
         [--segment-samples 0] [--batch 16] [--dir build/loader_rate]
-        [--device cuda]
+        [--device cuda] [--no-graphs]
 
 Encodes 6 NTSC frames of the `ramp` pattern (8,008,000 samples: a whole
 number of samples and of colour-subcarrier cycles), packs them 4 samples
@@ -17,9 +17,14 @@ file samples the decode advanced over, its wall time and MSa/s with
 every segment load in it, the segment loads, the unpack's calls and
 seconds (io/loaders.py's counters) and the prefetcher's t_unpack; and
 the rate after the first frame (the steady state, later segment loads
-in it).  Both routes must give the same .tbc bytes.  A 2-frame decode
-first builds the kernels and plans outside the timed runs.  Prints the
-card's name and power limit first; the file is removed at the end.
+in it).  At each segment load it prints the batch call's graph counts
+(warm-ups, captures, replays) and, on the card, the device memory
+reserved: the segments share one resident buffer, so after the first
+segment neither grows.  The batch calls replay as CUDA graphs (the
+Framer's default); --no-graphs runs them eagerly.  Both routes must give
+the same .tbc bytes.  A 2-frame decode first builds the kernels and
+plans outside the timed runs.  Prints the card's name and power limit
+first; the file is removed at the end.
 --segment-samples with a small --samples and --batch let the CPU
 (--device cpu) run the same path."""
 
@@ -62,13 +67,16 @@ def write_capture(cfg, path: str, samples: int) -> int:
 def decode(cfg, bank, path: str, a, sync, limit: int = 0):
     fr = FR.Framer(cfg, bank, loader=L.loader_for_path(path), batch=a.batch,
                    nblocks=NBLOCKS, segment_samples=a.segment_samples,
-                   device=a.device)
+                   device=a.device, graphs=not a.no_graphs)
     loads = []
     set_capture = fr.prefetcher.set_capture
+    cuda = a.device == 'cuda'
 
     def counted(capture, base, **kw):
         sync()
-        loads.append((base, time.perf_counter()))
+        loads.append((base, time.perf_counter(),
+                      dict(fr.prefetcher.graphs.counts),
+                      torch.cuda.memory_reserved() / 2**20 if cuda else 0))
         return set_capture(capture, base, **kw)
 
     fr.prefetcher.set_capture = counted
@@ -87,8 +95,12 @@ def decode(cfg, bank, path: str, a, sync, limit: int = 0):
         sync()
         t_all = time.perf_counter() - t0
     return dict(frames=len(marks), t=t_all, span=sample - START,
-                loads=[(b, t - t0) for b, t in loads], marks=marks,
-                digest=digest.hexdigest(), stats=fr.prefetcher.stats)
+                loads=[(b, t - t0, c, m) for b, t, c, m in loads],
+                marks=marks, digest=digest.hexdigest(),
+                stats=fr.prefetcher.stats,
+                counts=dict(fr.prefetcher.graphs.counts),
+                reserved=torch.cuda.memory_reserved() / 2**20 if cuda
+                else 0)
 
 
 def main():
@@ -99,6 +111,8 @@ def main():
     ap.add_argument('--dir', default=os.path.join(ROOT, 'build',
                                                   'loader_rate'))
     ap.add_argument('--device', default='cuda')
+    ap.add_argument('--no-graphs', action='store_true',
+                    help='run the batch calls eagerly (Framer(graphs=False))')
     a = ap.parse_args()
     if a.device == 'cuda':
         if not torch.cuda.is_available():
@@ -143,8 +157,11 @@ def main():
                   f'{r["stats"]["t_unpack"]:.3f} s, t_fetch '
                   f'{r["stats"]["t_fetch"]:.3f} s, batches '
                   f'{r["stats"]["batches"]}')
-            print(f'  segment loads (base sample, s after the start): '
-                  + ', '.join(f'{b} at {t:.3f}' for b, t in r['loads']))
+            print(f'  segment loads (base sample, s after the start, the '
+                  f'graph counts and MiB reserved before the load): '
+                  + ', '.join(f'{b} at {t:.3f} {c} {m:.1f}'
+                              for b, t, c, m in r['loads'])
+                  + f'; at the end {r["counts"]} {r["reserved"]:.1f}')
             # steady state: from the end of the first frame (the first
             # segment load, the warm-up and the sequential first field in
             # it) to the end, every later segment load included

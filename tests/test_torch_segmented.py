@@ -6,7 +6,9 @@ decode of the same file.
 Budgets: CAV numbers, next samples, line-0 words and seek positions exact;
 the segmented frames within p99.9 <= 2 LSB of the resident ones (rows
 24+, the JAX package's own budget between its two paths) and within
-tests/torch_parity.py's picture budget of the JAX package's."""
+tests/torch_parity.py's picture budget of the JAX package's.  The decode
+of a file of several segments under the emulated graph protocol equals
+the eager one exactly, with one batch-call key for the whole file."""
 
 import jax
 import numpy as np
@@ -20,7 +22,10 @@ from ld_decode_tpu.tbc import framer as JFR
 from ld_decode_tpu.utils.params import DecoderConfig
 from ld_decode_tpu_torch.io import loaders as TL
 from ld_decode_tpu_torch.ops import filters as TF
+from ld_decode_tpu_torch.ops import demod as TD
 from ld_decode_tpu_torch.tbc import framer as TFR
+from ld_decode_tpu_torch.tbc import fused as TFU
+from ld_decode_tpu_torch.utils.graphs import GraphCache
 from ld_decode_tpu_torch.utils.params import DecoderConfig as TConfig
 
 from torch_parity import assert_picture_close
@@ -41,6 +46,17 @@ def capture(tmp_path_factory):
     path.write_bytes(JL.pack_data_4_40(samples).tobytes())
     tcfg = TConfig(system='NTSC', freq_mhz=40.0)
     return cfg, tcfg, samples, path, TF.make_demod_bank(tcfg, device='cpu')
+
+
+@pytest.fixture(scope='module')
+def tiled(capture):
+    """The fixture's packed bytes written 3 times in a row: a 36-frame file
+    of about 4 of the smallest segments (the FM carriers' phase steps at
+    each join; the decode rides it)."""
+    path = capture[3]
+    tiled = path.with_name('tiled.lds')
+    tiled.write_bytes(path.read_bytes() * 3)
+    return tiled
 
 
 def _decode_frames(fr, fd, n, start=START):
@@ -107,3 +123,106 @@ def test_segmented_seek(capture):
                          segment_samples=1, pic_mode='raw')
         with open(path, 'rb') as fd:
             assert JFR.findframe(fd, jfr, 908, START) == pos
+
+
+def _hops(fr, fd, spf, n_file):
+    """Two frames from START, one after a jump into each of the next three
+    (full) segments, and the frames from a short tail segment to the end
+    of the file: (frame, CAV number, next sample) each, and the segment
+    loads (base, valid_len, the cache's counts before the load)."""
+    loads = []
+    pf = fr.prefetcher
+    set_capture = pf.set_capture
+    graphs = getattr(pf, 'graphs', None)          # the JAX package: none
+
+    def counted(capture, base, valid_len=None):
+        loads.append((base, valid_len, graphs and dict(graphs.counts)))
+        return set_capture(capture, base, valid_len)
+
+    pf.set_capture = counted
+    out = _decode_frames(fr, fd, 2)
+    for k in (1, 2, 3):
+        out += _decode_frames(fr, fd, 1, START + int(k * 8.2 * spf))
+    # the tail: the last segment holds ~2.5 frames of file
+    out += _decode_frames(fr, fd, 8, n_file - int(2.5 * spf))
+    return out, loads
+
+
+def test_tiled_file_keeps_one_key(capture, tiled):
+    """A decode over 3 swaps and a zero-padded tail segment under the
+    emulated graph protocol: one batch-call key for the whole file, warmed
+    up and captured in the first segment and never again (the buffer is
+    refilled in place and valid_len is a dynamic input, not a key); its
+    frames, CAV numbers, next samples and line-0 words equal the eager
+    decode's exactly, and its tail equals the JAX package's segmented
+    Framer to the budgets above."""
+    cfg, tcfg, samples, path, bank = capture
+    spf = cfg.freq_hz / cfg.sys.fps
+    n_file = tiled.stat().st_size // 5 * 4
+    runs = {}
+    for name in ('emulate', 'eager'):
+        cache = GraphCache('cpu', 'emulate') if name == 'emulate' else False
+        fr = TFR.Framer(tcfg, bank, TL.loader_for_path(str(tiled)),
+                        batch=2, segment_samples=1, device='cpu',
+                        graphs=cache)
+        with open(tiled, 'rb') as fd:
+            runs[name] = _hops(fr, fd, spf, n_file) + (fr,)
+    (got, loads, fr), (ref, _, _) = runs['emulate'], runs['eager']
+    seg = fr._seg_samples
+    assert len(loads) >= 5                       # 3 swaps, then the tail
+    assert all(v == seg for _, v, _ in loads[:4])
+    assert loads[-1][1] < seg and fr._seg_eof     # a padded tail
+    assert fr.prefetcher.capture is fr._seg_buf
+    assert fr._seg_buf.shape == (seg,)
+    assert not fr._seg_buf[fr._seg_valid:].any()
+    cache = fr.prefetcher.graphs
+    after_first = loads[1][2]
+    assert after_first['eager_warmups'] == 1 and after_first['captures'] == 1
+    for k in ('eager_warmups', 'captures'):
+        assert cache.counts[k] == after_first[k]
+    assert cache.counts['replays'] > after_first['replays']
+    assert len(cache._seen) == len(cache._graphs) == 1
+    key = next(iter(cache._seen))[0]
+    assert not {seg, loads[-1][1]} & set(key)          # valid_len is no key
+    assert len(got) == len(ref) >= 6
+    assert got[-1][1] == 910             # the tile's last whole frame
+    for (a, fa, na), (b, fb, nb) in zip(ref, got):
+        assert (fa, na) == (fb, nb) and np.array_equal(a, b)
+
+    with jax.enable_x64(False):
+        jfr = JFR.Framer(cfg, JF.make_demod_bank(cfg, np.complex64),
+                         loader=JL.loader_for_path(str(tiled)), batch=2,
+                         segment_samples=1, pic_mode='raw')
+        with open(tiled, 'rb') as fd:
+            want, _ = _hops(jfr, fd, spf, n_file)
+    assert len(want) == len(got)
+    for (a, fa, na), (b, fb, nb) in zip(want, got):
+        assert (fa, na) == (fb, nb)
+        np.testing.assert_array_equal(a[:16], b[:16])
+        assert_picture_close(b.reshape(-1, 910), a.reshape(-1, 910))
+
+
+def test_batch_call_takes_valid_len_as_a_tensor(capture):
+    """field_pipeline_batch with valid_len a device scalar (the
+    prefetcher's dynamic input) equals the int form bit for bit, on a
+    capture zero-padded past valid_len where the second window clamps at
+    the real end."""
+    cfg, tcfg, samples, path, bank = capture
+    n = 3 * 1334667
+    cap = torch.zeros(n + 2 ** 20)
+    cap[:n] = torch.from_numpy(samples[:n].astype(np.float32))
+    pitch = int(round(tcfg.freq_hz / tcfg.sys.fps / 2))
+    s0 = n - TD.stream_len(tcfg, 52) + tcfg.blockcut - pitch // 2
+    outs = []
+    for vlen in (n, torch.tensor(n, dtype=torch.int32)):
+        outs.append(TFU.field_pipeline_batch(
+            cap, torch.tensor(s0, dtype=torch.int32), torch.zeros(()),
+            torch.ones(()), bank, tcfg, 52, 52 * bank.a_stage1_keep, 2,
+            pitch, valid_len=vlen))
+    (a, sa, oa), (b, sb, ob) = outs
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert torch.equal(sa, sb) and torch.equal(oa, ob)
+    starts = a['meta_i'][:, 6]
+    assert int(starts[1]) == n - TD.stream_len(tcfg, 52) + tcfg.blockcut
