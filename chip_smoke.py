@@ -65,10 +65,20 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
  19. the NN comb (cuDNN, no hand kernel): TF32 shown off; NNComb() forward
      on a (1, 525, 910, 3) frame card vs CPU within 5e-5 of max|out|;
      train_nn_comb at its defaults (250 steps, batch 8, 64 x 256) below
-     the loss bound 80; 3 train steps on identical batches card vs CPU;
-     comb_frame_nn card vs CPU (the comb budget); the training pairs of
-     phase 6's .tbc frames card vs CPU; ldexport_torch.py -t -F writing
-     N-2 pairs; the device time of a forward and of a train step;
+     the loss bound 80, twice eager and twice graphed (seconds a run);
+     the default run through a Trainer eager 5 times (is eager
+     repeatable?) and graphed once: losses, parameters and Adam's moments
+     within 2x the largest spread between eager runs (bit-equal where
+     eager repeats itself), the first loss, Adam's step counts and the
+     generator equal, one warm-up and one capture, ms a step both ways;
+     3 train steps on identical batches card vs CPU; comb_frame_nn over
+     24 frames eager and graphed (bit-equal, frames/s whole and after the
+     capture, the host AGC and the graphed comb's device ms a frame) and
+     card vs CPU (the comb budget); the training pairs of phase 6's .tbc
+     frames card vs CPU; ldexport_torch.py -t -F writing N-2 pairs, then
+     write_training_file on its frames eager and graphed (the CLI's .npz,
+     seconds), and the pairs of 128 frames both ways; the device time of
+     a forward;
  20. the VHS tape decode (cuFFT): a flat-50 tape capture at 8 fsc through
      decode_vhs in 4 windows of nblocks 66, card vs CPU (luma 1 LSB, demod
      1e-6 of its scale), the levels and audio carriers, the rate in
@@ -97,6 +107,11 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      comb over 16 frames against the sequential chain; three
      data-parallel NN steps against mesh=None at the CPU test's size, and
      one at the trainer's default width (loss and dp-averaged gradients);
+     the compile boundary: in the 1-rank NCCL world every sharded call
+     (batch call, demod, 3D comb) replays a CUDA graph and equals
+     graphs=False bit for bit, K1 counts equal, host ms a call both ways
+     (no collective runs in a world of one rank, so NCCL inside a capture
+     is not shown on one card); the 2-rank gloo world runs eagerly;
  23. the transport codecs (tbc/codec.py; csrc/codec_decode.cpp built with
      g++): the NTSC and PAL captures decoded at batch 16 with pic_mode
      'codec' and 'raw' -- equal frames, no raw fallback, every field on
@@ -107,7 +122,10 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      batch, the shipped ratio, the device-to-host rate and the link rate
      below which the codec pays; one NTSC (flow) and one PAL (dim 3)
      comb window with codec=True equal to codec=False, RGB48 and out8, no
-     decode fallback, the RGB encode's device time a window;
+     decode fallback, the RGB encode's device time a window; 4 windows of
+     4 frames a comb with the encode graphed (the default) and eager,
+     frames and words bit-equal, the encode's host and device ms a window
+     both ways;
  24. the legacy PAL comb (comb/comb_pal_legacy.py): two seeded synthetic
      1052x610 frames at dims 1, 2 and 3 on the card vs the CPU (max 2,
      p99.9 1 LSB: the CPU test's budget against JAX), the dim-3 primer
@@ -1544,6 +1562,18 @@ def two_step_phase(torch, np, ntsc_cli, pal_cli, d: str):
 # show as ~5e-4), and the comb's card vs CPU RGB budget (phase 8)
 NN_FWD_TOL = 5e-5
 NN_TRAIN_LOSS = 80.0    # IRE^2, tests/test_nn_comb.py's bound
+NN_STEPS = 250          # train_nn_comb's default run
+NN_DRAWS = 6            # batch draws through a graph vs eager
+# graphed vs eager training where eager does not repeat itself (cuDNN's
+# weight gradients): the losses (relative), parameters and each of Adam's
+# moments within NN_SPREAD times their largest spread among NN_EAGER_RUNS
+# eager runs of the default run (with 3 eager runs, graphed read 0.90-1.70
+# times eager's largest spread, PERF.md; 5 runs give 10 eager pairs
+# against graphed's 5, so one wide eager pair less often decides)
+NN_SPREAD = 2
+NN_EAGER_RUNS = 5
+NN_FRAMES = 24          # comb_frame_nn frames, eager then graphed
+NN_T_FRAMES = 11        # .tbc frames of the -t runs: pair windows 8 and 1
 
 
 def _state_close(a, b) -> float:
@@ -1588,21 +1618,32 @@ def nn_comb_phase(torch, np, ntsc_cli, d: str):
     if g.device.type != 'cuda' or err > NN_FWD_TOL:
         fail('NN forward: card vs CPU outside the budget')
 
-    # the default training run on the card, twice: the first run in the
-    # process also pays cuDNN's first use of each convolution shape
-    runs = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trained, loss = NC.train_nn_comb(device='cuda')
-        torch.cuda.synchronize()
-        runs.append((loss, time.perf_counter() - t0))
-    print('train_nn_comb() at its defaults (250 steps, batch 8, 64 x 256): '
-          + ', '.join(f'loss {l:.3f} IRE^2 in {s:.2f} s' for l, s in runs)
-          + f' (first and second run; bound {NN_TRAIN_LOSS})')
-    if not all(l < NN_TRAIN_LOSS for l, _ in runs) \
+    # the default training run on the card, eager then graphed, twice
+    # each: the first run in the process also pays cuDNN's first use of
+    # each convolution shape (the graphed one its warm-up and capture)
+    runs = {}
+    for graphs in (False, True):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trained, loss = NC.train_nn_comb(device='cuda', graphs=graphs)
+            torch.cuda.synchronize()
+            runs.setdefault(graphs, []).append(
+                (loss, time.perf_counter() - t0,
+                 torch.cuda.max_memory_allocated() / 2**20))
+    for graphs, rr in runs.items():
+        print(f'train_nn_comb() at its defaults (250 steps, batch 8, 64 x '
+              f'256), {"graphed" if graphs else "eager"}: '
+              + ', '.join(f'loss {l:.3f} IRE^2 in {s:.3f} s (peak {m:.1f} '
+                          f'MiB)' for l, s, m in rr)
+              + f' (first and second run; bound {NN_TRAIN_LOSS})')
+    if not all(l < NN_TRAIN_LOSS for rr in runs.values() for l, _, _ in rr) \
             or next(trained.parameters()).device.type != 'cuda':
         fail('NN training did not reach the loss bound on the card')
+    res = {'train_s': {('graphed' if g else 'eager'): [r[1] for r in rr]
+                       for g, rr in runs.items()}}
+    res.update(_nn_graphs_check(torch, NC))
 
     # three train steps on identical batches, card vs CPU
     gen = torch.Generator().manual_seed(RNG_SEED)
@@ -1624,6 +1665,9 @@ def nn_comb_phase(torch, np, ntsc_cli, d: str):
           f'(CUDA events, median of 5)')
     if dloss > 1e-5 or dparam > 3e-5:
         fail('train steps: card vs CPU outside the budget')
+
+    res['comb_frame_nn'] = _nn_comb_frames(torch, np, NC, CN, trained,
+                                           frames)
 
     # comb_frame_nn on one frame, the trained weights on both
     cfg = CN.CombConfig(dim=2)
@@ -1652,17 +1696,274 @@ def nn_comb_phase(torch, np, ntsc_cli, d: str):
             or not np.array_equal(gi, ci) or dclp > 1e-5:
         fail('training pairs: card vs CPU outside the budget')
 
+    # ldexport_torch.py -t (eager pair windows, as the CLI runs them) on
+    # the .tbc frames cycled to NN_T_FRAMES, then the step of -t that
+    # graphs change, write_training_file on the same frames, eager and
+    # graphed: the same .npz as the CLI's; and the pairs alone of
+    # ldexport's most frames (TRAIN_FRAMES) both ways, twice
+    tiled = np.stack([frames[k % len(frames)] for k in range(NN_T_FRAMES)])
+    tiled.astype('<u2').tofile(os.path.join(d, 'tiled.tbc'))
     o = os.path.join(d, 'train')
     t0 = time.perf_counter()
-    rc_ = ldexport_torch.main([out + '.tbc', o, '-t', '-F'])
-    npz = np.load(o + '.train.npz')
+    rc_ = ldexport_torch.main([os.path.join(d, 'tiled.tbc'), o, '-t', '-F'])
+    cli_s = time.perf_counter() - t0
+    cli = dict(np.load(o + '.train.npz'))
     imgs = [f for f in os.listdir(d) if f.startswith('train_')]
-    print(f'ldexport_torch.py -t -F: exit {rc_}, '
-          f'{time.perf_counter() - t0:.1f} s, {o}.train.npz inputs '
-          f'{npz["inputs"].shape} clp {npz["clp"].shape}, {len(imgs)} images')
-    if rc_ != 0 or npz['inputs'].shape != (len(frames) - 2, CN.IN_Y,
-                                           CN.IN_X, 3) or not imgs:
+    print(f'ldexport_torch.py -t -F on {NN_T_FRAMES} frames: exit {rc_}, '
+          f'{cli_s:.3f} s, train.npz inputs {cli["inputs"].shape} clp '
+          f'{cli["clp"].shape}, {len(imgs)} images')
+    if rc_ != 0 or cli['inputs'].shape != (
+            NN_T_FRAMES - 2, CN.IN_Y, CN.IN_X, 3) or not imgs:
         fail('ldexport -t did not write the training pairs')
+    res['ldexport_t_s'] = cli_s
+    res['write_training_file_s'] = {}
+    for graphs in (False, True):
+        name = 'graphed' if graphs else 'eager'
+        path = os.path.join(d, f'pairs_{name}.npz')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        NC.write_training_file(tiled, path, device='cuda', graphs=graphs)
+        res['write_training_file_s'][name] = time.perf_counter() - t0
+        npz = np.load(path)
+        if any(not np.array_equal(npz[k], cli[k]) for k in ('inputs', 'clp')):
+            fail(f'write_training_file ({name}) differs from ldexport -t')
+    print('write_training_file, -t\'s pairs step, on the same frames: '
+          + ', '.join(f'{k} {v:.3f} s' for k, v in
+                      res['write_training_file_s'].items())
+          + '; both equal to the CLI\'s .npz')
+    many = np.stack([frames[k % len(frames)]
+                     for k in range(ldexport_torch.TRAIN_FRAMES)])
+    pair_s, pairs = {}, {}
+    for graphs in (False, True, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pairs[graphs] = NC.training_pairs_from_frames(many, device='cuda',
+                                                      graphs=graphs)
+        pair_s.setdefault('graphed' if graphs else 'eager', []).append(
+            time.perf_counter() - t0)
+    res['pairs_s'] = pair_s
+    same = all(np.array_equal(a, b) for a, b in zip(pairs[False],
+                                                     pairs[True]))
+    print(f'training_pairs_from_frames on {len(many)} frames (eager, '
+          f'graphed, eager, graphed): '
+          + ', '.join(f'{k} {v[0]:.3f} / {v[1]:.3f} s'
+                      for k, v in pair_s.items())
+          + f'; graphed == eager {same}')
+    if not same:
+        fail('training pairs: graphed differ from eager')
+    return res
+
+
+def _nn_trainer(torch, NC, graphs, steps: int = NN_STEPS):
+    """The default training run as train_nn_comb builds it, through a
+    Trainer: (its losses step by step, the trainer)."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    model = NC.NNComb().cuda()
+    model.reset_parameters(gen)
+    t = NC.Trainer(model, NC.make_optimizer(model, 3e-3), gen, 8, 64, 256,
+                   graphs=graphs)
+    return torch.stack([t.step().clone() for _ in range(steps)]), t
+
+
+def _nn_spreads(torch, run_a, run_b) -> dict:
+    """Largest differences of two runs (losses, trainer): losses relative,
+    parameters and each Adam moment absolute, and whether Adam's step
+    counts and the generators' states are equal."""
+    (la, ta), (lb, tb) = run_a, run_b
+    sa, sb = list(ta.opt.state.values()), list(tb.opt.state.values())
+    out = {'loss': float(((la - lb).abs() / la.abs()).max()),
+           'param': max(float((a - b).abs().max()) for a, b in zip(
+               ta.model.parameters(), tb.model.parameters()))}
+    for k in ('exp_avg', 'exp_avg_sq'):
+        out[k] = max(float((x[k] - y[k]).abs().max())
+                     for x, y in zip(sa, sb))
+    out['steps_equal'] = len(sa) == len(sb) and all(
+        torch.equal(x['step'], y['step']) for x, y in zip(sa, sb))
+    out['generator_equal'] = torch.equal(ta.generator.get_state(),
+                                         tb.generator.get_state())
+    return out
+
+
+def _nn_draws_check(torch, NC) -> bool:
+    """The trainer's batch draws (synthetic scenes and file crops) through
+    a GraphCache against eager from the same seed, over NN_DRAWS calls (a
+    warm-up, a capture, replays): the registered generator must advance
+    on each replay as an eager call advances it."""
+    from ld_decode_tpu_torch.utils.graphs import GraphCache
+    data = tuple(torch.randn(s, generator=torch.Generator('cuda').manual_seed(
+        1), device='cuda') for s in ((3, 96, 320, 3), (3, 96, 320)))
+    outs = []
+    for cache in (GraphCache('cuda', 'eager'), GraphCache('cuda')):
+        gen = torch.Generator('cuda').manual_seed(RNG_SEED)
+        draws = []
+        for _ in range(NN_DRAWS):
+            got = cache('draw', lambda: (NC.synth_batch(gen, 8, 64, 256)
+                                         + NC._file_batch(gen, data, 8, 64,
+                                                          256)), (),
+                        generators=(gen,))
+            draws.append([x.clone() for x in got])
+        outs.append((draws, gen.get_state()))
+    (de, ge), (dg, gg) = outs
+    return torch.equal(ge, gg) and all(
+        torch.equal(a, b) for x, y in zip(de, dg) for a, b in zip(x, y))
+
+
+def _nn_graphs_check(torch, NC) -> dict:
+    """The default run eager NN_EAGER_RUNS times and graphed once.  Eager
+    against itself first (cuDNN's weight gradients need not be
+    deterministic): graphed must differ from each eager run by at most
+    NN_SPREAD times the largest difference between two eager runs, in the
+    losses, the parameters and each of Adam's moments, so that where
+    eager repeats itself graphed equals it bit for bit.  Always equal:
+    the first step's loss (a forward of the same weights on the same
+    draws), Adam's step counts, the generator's state.  One warm-up and
+    one capture; ms a step both ways."""
+    eager = [_nn_trainer(torch, NC, False) for _ in range(NN_EAGER_RUNS)]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_reserved()
+    graphed = _nn_trainer(torch, NC, True)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    grown = (torch.cuda.memory_reserved() - base) / 2**20
+    g = graphed[1]
+
+    def first_difference(a, b) -> int:
+        d = (a != b).nonzero()
+        return int(d[0]) + 1 if len(d) else 0
+
+    own = [_nn_spreads(torch, a, b) for i, a in enumerate(eager)
+           for b in eager[i + 1:]]
+    got = [_nn_spreads(torch, e, graphed) for e in eager]
+    groups = ('loss', 'param', 'exp_avg', 'exp_avg_sq')
+    ee = {k: max(x[k] for x in own) for k in groups}
+    ge = {k: max(x[k] for x in got) for k in groups}
+    repeat = not any(ee.values())
+    exact = not any(ge.values())
+    first = max(first_difference(eager[0][0], l) for l, _ in eager[1:])
+    first_g = first_difference(eager[0][0], graphed[0])
+    first_equal = all(torch.equal(l[0], graphed[0][0]) for l, _ in eager)
+    same = all(x['steps_equal'] and x['generator_equal'] for x in got)
+    draws = _nn_draws_check(torch, NC)
+    counts = dict(g.graphs.counts)
+    cap_s = list(g.graphs.capture_seconds.values())
+    ms = {}
+    for name, t in (('eager', eager[0][1]), ('graphed', g)):
+        ev = _event_ms(torch, t.step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            t.step()
+        torch.cuda.synchronize()
+        ms[name] = dict(event_ms=ev,
+                        wall_ms=(time.perf_counter() - t0) / 50 * 1e3)
+
+    def fmt(d):
+        return ', '.join(f'{k} {d[k]:.2e}' for k in groups)
+
+    print(f'NN train step, the default run ({NN_STEPS} steps): '
+          f'{NN_EAGER_RUNS} eager runs '
+          f'{"bit-equal" if repeat else "NOT repeatable"} (first loss '
+          f'difference by step {first}; largest spread: {fmt(ee)}); '
+          f'graphed vs each eager run '
+          f'{"bit-equal" if exact else "not bit-equal"} (first loss '
+          f'difference from the first at step {first_g}; largest: '
+          f'{fmt(ge)};'
+          f' budget {NN_SPREAD} x eager\'s, ratios '
+          + ', '.join(f'{k} {ge[k] / ee[k]:.2f}' if ee[k] else f'{k} -'
+                      for k in groups)
+          + f'); Adam step counts and generator equal {same}; draws through'
+          f' a graph == eager over {NN_DRAWS} calls {draws}; cache {counts}, '
+          f'capture {cap_s} s; ms a step eager '
+          f'{ms["eager"]["event_ms"]:.3f} (CUDA events, median of 5) / '
+          f'{ms["eager"]["wall_ms"]:.3f} (wall, 50 steps), graphed '
+          f'{ms["graphed"]["event_ms"]:.3f} / '
+          f'{ms["graphed"]["wall_ms"]:.3f}; graphed run peak '
+          f'{peak:.1f} MiB, reserved +{grown:.1f} MiB')
+    if counts['eager_warmups'] != 1 or counts['captures'] != 1 \
+            or counts['replays'] != NN_STEPS - 2:
+        fail(f'NN train step: {counts}, not one warm-up and one capture')
+    if not draws or not same:
+        fail('NN train step: the graphed draws, step counts or generator '
+             'differ from eager')
+    if not first_equal or any(ge[k] > NN_SPREAD * ee[k] for k in groups):
+        fail('NN train step: graphed outside eager\'s own spread')
+    return dict(step_ms=ms, eager_repeatable=repeat, graphed_exact=exact,
+                first_eager_difference=first,
+                first_graphed_difference=first_g, eager_spread=ee,
+                graphed_spread=ge, draws_equal=draws, capture_s=cap_s,
+                peak_mib=peak, reserved_grown_mib=grown)
+
+
+def _nn_comb_frames(torch, np, NC, CN, model, frames) -> dict:
+    """comb_frame_nn over NN_FRAMES frames of the .tbc (cycled), eager then
+    through one GraphCache: RGB and carries bit-equal; frames/s whole and
+    after the capture (the third frame on), each frame's RGB copied to the
+    host."""
+    from ld_decode_tpu_torch.utils.graphs import GraphCache
+    cfg = CN.CombConfig(dim=2)
+    dev = [torch.from_numpy(frames[k % len(frames)].astype(np.int32)).cuda()
+           for k in range(NN_FRAMES)]
+    outs, rates = {}, {}
+    for name, cache in (('eager', None), ('graphed', GraphCache('cuda'))):
+        ab, rgb, ts = -1.0, [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in dev:
+            r, ab = NC.comb_frame_nn(f, model, ab, cfg, graphs=cache)
+            rgb.append((r.cpu(), ab))
+            ts.append(time.perf_counter())
+        outs[name] = rgb
+        rates[name] = dict(whole=NN_FRAMES / (ts[-1] - t0),
+                           after_capture=(NN_FRAMES - 2) / (ts[-1] - ts[1]))
+        if cache is not None:
+            rates[name]['counts'] = dict(cache.counts)
+            rates[name]['capture_s'] = list(cache.capture_seconds.values())
+    same = all(torch.equal(a[0], b[0]) and a[1] == b[1]
+               for a, b in zip(outs['eager'], outs['graphed']))
+    # where a graphed frame's time goes, on the last frame: the host AGC
+    # (burst_levels, its read-back included; wall, median of 5), the comb
+    # after it replayed through a cache of its own (CUDA events, median of
+    # 5 replays) and the RGB's copy to the host (wall, median of 5)
+    f = dev[-1]
+    levels, _ = CN.burst_levels(f[None], -1.0, cfg)
+    timing = GraphCache('cuda')
+
+    def core(raw, lv):
+        return NC._comb_nn_core(raw, lv, model, cfg)
+
+    def replay():
+        return timing('comb_nn', core, (f, levels[0]),
+                      reads=tuple(model.parameters()))
+
+    def wall_ms(fn):
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    comb_ms = _event_ms(torch, replay)
+    rgb = replay()
+    parts = dict(agc_host_ms=wall_ms(lambda: CN.burst_levels(
+                     f[None], -1.0, cfg)),
+                 comb_device_ms=comb_ms,
+                 rgb_copy_ms=wall_ms(lambda: rgb.cpu()))
+    rates['graphed']['breakdown'] = parts
+    print(f'comb_frame_nn over {NN_FRAMES} frames: graphed == eager {same} '
+          f'(RGB48 and AGC carry); RGB frames/s whole, from frame 3: eager '
+          f'{rates["eager"]["whole"]:.2f}, '
+          f'{rates["eager"]["after_capture"]:.2f}; graphed '
+          f'{rates["graphed"]["whole"]:.2f}, '
+          f'{rates["graphed"]["after_capture"]:.2f}; cache '
+          f'{rates["graphed"]["counts"]}, capture '
+          f'{rates["graphed"]["capture_s"]} s; a graphed frame: host AGC '
+          f'{parts["agc_host_ms"]:.3f} ms, the comb replayed '
+          f'{parts["comb_device_ms"]:.3f} ms (CUDA events), RGB copy '
+          f'{parts["rgb_copy_ms"]:.3f} ms')
+    if not same or rates['graphed']['counts']['captures'] != 1:
+        fail('comb_frame_nn: graphed differs from eager')
+    return rates
 
 
 def vhs_phase(torch, np):
@@ -1940,6 +2241,7 @@ def mesh_rank(argv):
     from ld_decode_tpu_torch.tbc import cuda_resample as CR
     from ld_decode_tpu_torch.tbc import fused as FU
     from ld_decode_tpu_torch.tbc import sync as S
+    from ld_decode_tpu_torch.utils.graphs import as_cache
     from ld_decode_tpu_torch.utils.params import DecoderConfig
     torch.cuda.set_device(0)
     dist.init_process_group(backend, init_method=f'tcp://127.0.0.1:{port}',
@@ -1964,6 +2266,34 @@ def mesh_rank(argv):
         torch.cuda.synchronize()
         return r, (time.perf_counter() - t0) / reps * 1e3
 
+    graphed = world == 1         # NCCL: the sharded calls capture
+
+    def both_ways(name, build, call, n=3):
+        """build(graphs) -> fn: with the default route's cache (a CUDA
+        graph a rank on NCCL, eager on the host-staged gloo mesh) and, in
+        the 1-rank world, eagerly too; each called with call(fn, k) for k
+        in range(n) (a warm-up, a capture, replays), on inputs that change
+        with k, the last the reference's; the last outputs must match bit
+        for bit, and each earlier call's differ from them.  Returns the
+        default's last outputs on the host."""
+        cache = as_cache(None, mesh.device, mesh.staged)
+        fn = build(cache)
+        info[f'{name}_graphs'] = cache.mode
+        outs = [[x.cpu().numpy() for x in _leaves(call(fn, k))]
+                for k in range(n)]
+        got = outs[-1]
+        info[f'{name}_varied'] = all(
+            any(not np.array_equal(a, b) for a, b in zip(o, got))
+            for o in outs[:-1])
+        if cache.mode == 'graph':
+            info[f'{name}_counts'] = dict(cache.counts)
+            fe = build(False)
+            want = [[x.cpu().numpy() for x in _leaves(call(fe, k))]
+                    for k in range(n)][-1]
+            info[f'{name}_equal_eager'] = len(got) == len(want) and all(
+                np.array_equal(a, b) for a, b in zip(got, want))
+        return got
+
     for system, p in spec['pipeline'].items():
         cfg = DecoderConfig(system=system, freq_mhz=40.0)
         bank = F.make_demod_bank(cfg, np.complex64, device=dev)
@@ -1971,19 +2301,47 @@ def mesh_rank(argv):
         cap = torch.from_numpy(np.load(os.path.join(
             d, f'cap_{system}.npy')).astype(np.float32)).to(dev)
         args = (cap, p['start'], 0.0, 1.0)
-        fn = M.build_pipeline_batch_sharded(cfg, bank, mesh, p['nblocks'],
-                                            n_audio1, p['batch'], p['pitch'])
-        fn(*args)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        CR.resample_lines_batch.launches = 0
-        CR.resample_lines_batch.window_launches = 0
-        (out, ns, no), ms = timed(fn, *args)
-        window = CR.resample_lines_batch.window_launches
-        info[system] = dict(ms=ms, k1=CR.resample_lines_batch.launches - window,
-                            k1_window=window, next=[int(ns), float(no)],
-                            peak_mib=torch.cuda.max_memory_allocated() / 2**20)
-        res.update({f'{system}_{k}': v.cpu().numpy() for k, v in out.items()})
+        # the warm-up and the capture on other start0, audio_offset0,
+        # mtf_level and valid_len (the first clamps the last fields'
+        # windows); the timed calls on args
+        n_stream = D.stream_len(cfg, p['nblocks'])
+        s0, pitch = p['start'], p['pitch']
+        others = ((cap, s0 + pitch // 2, 0.0, 0.8, s0 + pitch + n_stream),
+                  (cap, s0 - pitch // 3, 0.5, 0.9, cap.shape[0] - 1))
+        runs = {}
+        for graphs in ((None, False) if graphed else (None,)):
+            cache = as_cache(graphs, mesh.device, mesh.staged)
+            fn = M.build_pipeline_batch_sharded(
+                cfg, bank, mesh, p['nblocks'], n_audio1, p['batch'],
+                p['pitch'], graphs=cache)
+            warm = [[x.cpu().numpy() for x in _leaves(fn(*a))]
+                    for a in others]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            CR.resample_lines_batch.launches = 0
+            CR.resample_lines_batch.window_launches = 0
+            (out, ns, no), ms = timed(fn, *args)
+            window = CR.resample_lines_batch.window_launches
+            last = [x.cpu().numpy() for x in _leaves((out, ns, no))]
+            runs[graphs] = dict(
+                varied=all(any(not np.array_equal(a, b)
+                               for a, b in zip(w, last)) for w in warm),
+                ms=ms, k1=CR.resample_lines_batch.launches - window,
+                k1_window=window, next=[int(ns), float(no)],
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                mode=cache.mode, counts=dict(cache.counts),
+                capture_s=list(cache.capture_seconds.values()),
+                out={k: v.cpu().numpy() for k, v in out.items()})
+        info[system] = {k: v for k, v in runs[None].items() if k != 'out'}
+        res.update({f'{system}_{k}': v for k, v in runs[None]['out'].items()})
+        if graphed:
+            e = runs[False]
+            info[system]['eager'] = dict(
+                ms=e['ms'], k1=e['k1'], k1_window=e['k1_window'],
+                next=e['next'], peak_mib=e['peak_mib'],
+                equal=all(np.array_equal(v, e['out'][k])
+                          for k, v in runs[None]['out'].items()))
+        del runs
         if world == 1:
             single = (cap, p['start'], 0.0, 1.0, bank, cfg, p['nblocks'],
                       n_audio1, p['batch'], p['pitch'])
@@ -2003,8 +2361,12 @@ def mesh_rank(argv):
     nb, keep = MESH_DEMOD_NBLOCKS, cfg.block_keep
     cols = nb // dmesh.sp * keep
     lo = dmesh.sp_index * cols
-    step = M.build_sharded_demod(cfg, bank, dmesh, nb, streams.shape[0])
-    demod, pidx, _pval = step(streams[:, lo:lo + cols].contiguous(), 1.0)
+    body = streams[:, lo:lo + cols].contiguous()
+    demod, pidx, _pval = (torch.from_numpy(x).to(dev) for x in both_ways(
+        'demod', lambda g: M.build_sharded_demod(
+            cfg, bank, dmesh, nb, streams.shape[0], graphs=g),
+        lambda fn, k: fn(body if k == 2 else body.roll(k + 1, dims=1),
+                         (0.8, 0.9, 1.0)[k])))
     video, _ = D.demod_blocks(streams, bank, cfg, nb, 1.0)
     ref = video['demod'][:, lo:lo + cols]
     n = cols - (keep if dmesh.sp_index == dmesh.sp - 1 else 0)
@@ -2023,10 +2385,18 @@ def mesh_rank(argv):
     frames = torch.from_numpy(np.load(os.path.join(d, 'frames.npy'))).to(dev)
     ccfg = CN.CombConfig(dim=3, opticalflow=False)
     f_l = MESH_COMB_FRAMES // mesh.size
-    comb = M.build_sharded_comb3d(ccfg, mesh, MESH_COMB_FRAMES)
-    rgb, info['comb_ms'] = timed(comb, frames[rank * f_l:(rank + 1) * f_l],
-                                 reps=1)
-    res['comb'] = rgb.cpu().numpy().astype(np.uint16)
+    mine = frames[rank * f_l:(rank + 1) * f_l]
+    rgb, = both_ways('comb', lambda g: M.build_sharded_comb3d(
+        ccfg, mesh, MESH_COMB_FRAMES, graphs=g),
+        lambda fn, k: fn(mine.roll(2 - k, dims=2)))
+    res['comb'] = rgb.astype(np.uint16)
+    for graphs in ((None, False) if graphed else (None,)):
+        comb = M.build_sharded_comb3d(ccfg, mesh, MESH_COMB_FRAMES,
+                                      graphs=graphs)
+        for _ in range(2):
+            comb(mine)
+        _, info['comb_ms' if graphs is None else 'comb_eager_ms'] = timed(
+            comb, mine)
     if world == 1:
         ab, seq = -1.0, []
         for k in range(MESH_COMB_FRAMES):
@@ -2050,11 +2420,24 @@ def mesh_rank(argv):
     res.update({f'nn_{k}': v.cpu().numpy()
                 for k, v in model.state_dict().items()})
     info['nn_loss'] = loss
+    # the data-parallel trainer's route (train_nn_comb: as_cache's rule)
+    info['nn_graphs'] = (as_cache(None, dev, nn_mesh.staged).mode
+                         if nn_mesh else 'graph')
 
     np.savez(os.path.join(d, f'rank{rank}.npz'), **res)
     dist.barrier()
     dist.destroy_process_group()
     print('MESH_RESULT ' + json.dumps(info), flush=True)
+
+
+def _leaves(x) -> list:
+    """The tensors of a sharded call's result (a tensor, a tuple, a dict
+    of tensors), in order."""
+    if isinstance(x, dict):
+        return [v for k in sorted(x) for v in _leaves(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [v for y in x for v in _leaves(y)]
+    return [x]
 
 
 def _run_world(np, world: int, backend: str, d: str):
@@ -2215,6 +2598,42 @@ def mesh_phase(torch, np, cfg, cap, pcfg, pcap, d: str):
               + '; outputs equal to the single-rank batch (audio within '
               'JAX\'s allowance), chained scalars exact')
 
+    # the compile boundary: the 1-rank NCCL world's calls replay CUDA
+    # graphs (no collective runs in a world of one rank), the 2-rank gloo
+    # world's run eagerly (host-staged)
+    for system in MESH_PIPELINES:
+        g, e = one[system], one[system]['eager']
+        same = e['equal'] and e['next'] == g['next']
+        print(f'{system} sharded call, 1 rank ({one["backend"]}), graphs '
+              f'{g["mode"]} vs eager: outputs and chained scalars '
+              f'{"bit-equal" if same else "DIFFER"} (warm-up and capture '
+              f'on other start0, offset, mtf_level, valid_len: outputs '
+              f'differ from the replay\'s {g["varied"]}); '
+              f'K1 {g["k1"]} + {g["k1_window"]} vs {e["k1"]} + '
+              f'{e["k1_window"]}; host ms a call {g["ms"]:.3f} vs '
+              f'{e["ms"]:.3f}; capture {g["capture_s"]} s, cache '
+              f'{g["counts"]}; peak {g["peak_mib"]:.1f} vs '
+              f'{e["peak_mib"]:.1f} MiB')
+        if g['mode'] != 'graph' or not same or not g['varied'] \
+                or (e['k1'], e['k1_window']) != (g['k1'], g['k1_window']):
+            fail(f'{system}: the graphed sharded call differs from eager')
+    for name in ('demod', 'comb'):
+        print(f'sharded {name}, 1 rank: graphs {one[name + "_graphs"]}, '
+              f'equal to eager {one.get(name + "_equal_eager")} (earlier '
+              f'calls on other inputs differ {one[name + "_varied"]}), '
+              f'cache {one.get(name + "_counts")}')
+        if one[name + '_graphs'] != 'graph' or not one[name + '_varied'] \
+                or not one.get(name + '_equal_eager'):
+            fail(f'sharded {name}: the graphed call differs from eager')
+    modes = {(i['rank'], k): v for i in infos2 for k, v in i.items()
+             if k.endswith('_graphs')}
+    modes.update({(i['rank'], s_): i[s_]['mode'] for i in infos2
+                  for s_ in MESH_PIPELINES})
+    print(f'2 ranks ({infos2[0]["backend"]}, host-staged): every sharded '
+          f'call ran eagerly: {sorted(set(modes.values()))}')
+    if set(modes.values()) != {'eager'}:
+        fail(f'the host-staged world captured: {modes}')
+
     for i in [one] + infos2:
         dm = i['demod']
         print(f'demod rank {i["rank"]} of {i["world"]} (dp 1 x sp '
@@ -2231,9 +2650,10 @@ def mesh_phase(torch, np, cfg, cap, pcfg, pcap, d: str):
         fail('the sharded 3D comb differs from the sequential comb_frame '
              'chain')
     print(f'comb3d: {MESH_COMB_FRAMES} frames of 525 x 910 equal to the '
-          f'sequential chain; {one["comb_ms"]:.1f} ms (1 rank), '
+          f'sequential chain; {one["comb_ms"]:.1f} ms graphed, '
+          f'{one["comb_eager_ms"]:.1f} ms eager (1 rank), '
           + ', '.join(f'{i["comb_ms"]:.1f}' for i in infos2)
-          + ' ms per rank (2 ranks)')
+          + ' ms per rank (2 ranks, eager)')
 
     gkeys = [k for k in ref if k.startswith('grad_')]
     gnoise = dparam = 0.0
@@ -2278,6 +2698,7 @@ def mesh_phase(torch, np, cfg, cap, pcfg, pcap, d: str):
 # a locked start, once a picture mode; one comb window of 4 frames a system
 CODEC_FRAMES = 16
 CODEC_REPS = 5
+CODEC_ENCODES = 20      # encodes a window timed by the host clock
 
 
 def _decode_frames(torch, FR, cfg, bank, cap, p, mode, n):
@@ -2469,8 +2890,74 @@ def codec_phase(torch, np, systems):
             if st1['rgb_decode_fallback'] or st1['rgb_decode_numpy']:
                 fail(f'{system} comb: RGB codec route not clean: {st1}')
             res[f'{system} comb {"out8" if out8 else "rgb48"}'] = dict(
-                encode_ms=wenc, frames=E, ratio=wratio)
+                encode_ms=wenc, frames=E, ratio=wratio,
+                graphs=_codec_comb_graphs(torch, np, CB, system, out8,
+                                          cod[0]))
     return k1, res
+
+
+def _codec_comb_graphs(torch, np, CB, system, out8, frames) -> dict:
+    """The comb's codec=True RGB encode, graphed (the default) against
+    eager: 4 windows of 4 of the decoded frames through each comb (NTSC
+    flow, PAL dim 3), every frame and word bit-equal; the encode key's
+    counts; the encode alone a window (the last window's RGB) both ways,
+    host ms (wall clock over CODEC_ENCODES calls, synchronised at the end)
+    and device ms (CUDA events)."""
+    from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig
+    from ld_decode_tpu_torch.comb.comb_pal import CombPALConfig
+    from ld_decode_tpu_torch.utils.graphs import GraphCache
+    win = torch.from_numpy(np.stack(frames[:16]).astype(np.int32)).cuda()
+    outs = {}
+    for graphs in (False, True):
+        if system == 'NTSC':
+            comb = CB.NTSCCombBatch(CombConfig(), out8=out8, device='cuda',
+                                    codec=True, graphs=graphs)
+        else:
+            comb = CB.PALCombBatch(CombPALConfig(dim=3), out8=out8,
+                                   device='cuda', codec=True, graphs=graphs)
+        handles = [comb.feed(win[k:k + 4]) for k in range(0, 16, 4)]
+        rgb, words = [], []
+        for h in handles:
+            r, w = comb.collect(h)
+            rgb += r
+            words += w
+        outs[graphs] = (rgb, words, comb)
+    (re_, we, _), (rg, wg, cg) = outs[False], outs[True]
+    same = len(re_) == len(rg) > 0 and all(
+        np.array_equal(a, b) for a, b in zip(re_ + we, rg + wg)
+        if a is not None)
+    enc = {k: n for k, n in cg.graphs.capture_seconds.items()
+           if k[0][0] == 'rgb_encode'}
+    last = torch.from_numpy(np.stack(rg[-4:]).astype(np.int32)).cuda()
+    if out8:
+        last = last << 8
+    cache = GraphCache('cuda')
+    timing = {}
+    for name, fn in (('eager', lambda: CB._rgb_encode(last, out8)),
+                     ('graphed', lambda: cache(
+                         ('rgb_encode', out8),
+                         lambda x: CB._rgb_encode(x, out8), (last,)))):
+        ev = _event_median_ms(torch, fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CODEC_ENCODES):
+            fn()
+        torch.cuda.synchronize()
+        timing[name] = dict(event_ms=ev, wall_ms=(time.perf_counter() - t0)
+                            / CODEC_ENCODES * 1e3)
+    print(f'{system} comb codec=True {"out8" if out8 else "RGB48"}, graphed '
+          f'vs eager over 4 windows of 4 frames: {len(rg)} frames and words '
+          f'{"bit-equal" if same else "DIFFER"}; encode key captures '
+          f'{len(enc)} ({list(enc.values())} s), decode fallback '
+          f'{cg.stats["rgb_decode_fallback"]}, top-ups '
+          f'{cg.stats["rgb_topups"]}; the encode a 4-frame window: eager '
+          f'{timing["eager"]["wall_ms"]:.3f} ms host, '
+          f'{timing["eager"]["event_ms"]:.3f} ms events; graphed '
+          f'{timing["graphed"]["wall_ms"]:.3f} ms host, '
+          f'{timing["graphed"]["event_ms"]:.3f} ms events')
+    if not same or not enc or cg.stats['rgb_decode_fallback']:
+        fail(f'{system} comb: the graphed codec encode differs from eager')
+    return dict(timing, capture_s=list(enc.values()))
 
 
 # phase 24: the legacy PAL comb, card vs CPU: the CPU test's budget against
@@ -3576,7 +4063,8 @@ def run(torch, np, work: str):
     k2_stream = stream_comb_phase(torch, np, base)
     k3 = k3_phase(torch, np)
     two = two_step_phase(torch, np, ntsc_cli, pal_cli, _subdir(work, 'two'))
-    nn_comb_phase(torch, np, ntsc_cli, _subdir(work, 'nn'))
+    nn = nn_comb_phase(torch, np, ntsc_cli, _subdir(work, 'nn'))
+    print('NN comb graphs vs eager', json.dumps(nn))
     vhs_phase(torch, np)
     loader_phase(torch, np, cfg, cap, _subdir(work, 'loader'))
     sharded = mesh_phase(torch, np, cfg, cap, pcfg, pcap,
@@ -3587,7 +4075,10 @@ def run(torch, np, work: str):
                                              device='cuda')),
         'PAL': (pcfg, pcap, F.make_demod_bank(pcfg, np.complex64,
                                               device='cuda'))}
-    codec_k1, _ = codec_phase(torch, np, systems)
+    codec_k1, codec_res = codec_phase(torch, np, systems)
+    print('codec comb encode graphs vs eager', json.dumps(
+        {k: v['graphs'] for k, v in codec_res.items()
+         if isinstance(v, dict) and 'graphs' in v}))
     legacy_comb_phase(torch, np)
     graphs = graphs_phase(torch, np, systems)
     print('graphs vs eager', json.dumps(graphs))

@@ -38,7 +38,10 @@ payload fails the consistency gate comes out black, counted in
 stats['rgb_decode_fallback'] with a warning.  JAX's default is codec=True
 (its tunnel); the port's is False: the raw copy is the cheaper one on the
 card (chip_smoke.py phase 23 times the encode a window on an NVIDIA H100;
-PERF.md).  `CombWindows` is the chain's loop over windows, shared by
+PERF.md).  The encode (JAX's jitted `_rgb_encode`) replays as one CUDA
+graph a window shape and output depth through the comb's cache, as does
+the raw path's cut to 8 bits (`_to_rgb8`).
+`CombWindows` is the chain's loop over windows, shared by
 ldchain_torch.py, chip_smoke.py and scripts/profile_torch.py.
 """
 
@@ -117,6 +120,22 @@ def _comb_window_simple(win: torch.Tensor, levels: torch.Tensor,
     return _crop(rgb, cfg), win[:, 0, :16]
 
 
+def _to_rgb8(rgb: torch.Tensor) -> torch.Tensor:
+    """RGB48 -> the top bytes (comb -8), JAX's jitted `_to_rgb8`."""
+    return (rgb >> 8).to(torch.uint8)
+
+
+def _rgb_encode(rgb: torch.Tensor, out8: bool):
+    """A window's (E, rows, W, 3) RGB48 -> the RGB codec's payload (JAX's
+    `_rgb_encode`): planar, k=1, the horizontal pass on RGB48; with out8
+    the top byte only, without the horizontal pass."""
+    if out8:
+        rgb = rgb >> 8
+    E, rows, W, _ = rgb.shape
+    img = CODEC.pad_to_blocks(rgb.movedim(3, 1).reshape(E, 3 * rows, W))
+    return CODEC.encode_image_payload(img, 1, hpass=not out8)
+
+
 def _window_tensor(frames, device, lines: int, width: int) -> torch.Tensor:
     """A feed's frames (a tensor, or a numpy array of 16-bit samples) as
     an (N, lines, width) tensor on `device`."""
@@ -144,15 +163,20 @@ class _RgbCodecMixin:
         """Start the copies of a window's (E, rows, W, 3) RGB and `extra`
         tensors; on the card they run asynchronously after the comb."""
         self.stats['windows'] += 1
-        if self.out8:
-            rgb = rgb >> 8
         if not self.codec:
             if self.out8:
-                rgb = rgb.to(torch.uint8)
+                rgb = self.graphs(('rgb8',), _to_rgb8, (rgb,))
             return ('raw',) + to_host_async({'rgb': rgb, **extra}) + (None,)
         E, rows, W, _ = rgb.shape
-        img = CODEC.pad_to_blocks(rgb.movedim(3, 1).reshape(E, 3 * rows, W))
-        pay = CODEC.encode_image_payload(img, 1, hpass=not self.out8)
+        out8 = self.out8
+        pay = self.graphs(('rgb_encode', out8),
+                          lambda x: _rgb_encode(x, out8), (rgb,))
+        if self.graphs.aliased:
+            # replayed, the payload is the graph's static tensors: the
+            # copies below are queued next on the stream, but a top-up at
+            # collect reads the dense buffers after later windows' replays
+            pay = dict(pay, dense=pay['dense'].clone(),
+                       dense_q=pay['dense_q'].clone())
         copies = {'tab': pay['tab'], 'rows2': pay['rows2'], **extra}
         self._prefixes.start(copies, pay['dense'], pay['dense_q'])
         return ('codec',) + to_host_async(copies) + (

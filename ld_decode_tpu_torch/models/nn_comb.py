@@ -37,7 +37,12 @@ tests/test_torch_nn_comb.py:
     package's `mesh=`, parallel/mesh.py) draws the whole batch on every
     rank, trains each on its 'dp' rows and averages the gradients;
   * the AGC of `comb_frame_nn` is the port's host EMA (`burst_levels`),
-    as in comb_ntsc.comb_frame.
+    as in comb_ntsc.comb_frame;
+  * the JAX package's compile boundary is a GraphCache
+    (utils/graphs.py): the train step (`Trainer.step`: the batch draw,
+    the forward and backward pass and Adam's update, JAX's `jstep`), the
+    comb after the AGC in `comb_frame_nn` and each window of training
+    pairs replay as one CUDA graph a static key on the card.
 
 Chroma/carrier convention (derived from split_iq, comb-ntsc.cxx:414-483):
 the comb tail recovers i/q from the chroma-plane estimate `clp` via
@@ -51,7 +56,7 @@ training target use exactly this identity.
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,6 +66,7 @@ from torch import nn
 from ld_decode_tpu_torch.comb import comb_ntsc as CN
 from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
+from ld_decode_tpu_torch.utils.graphs import GraphCache, as_cache
 
 IRESCALE = CN.IRESCALE
 IREBASE = CN.IREBASE
@@ -260,14 +266,18 @@ def _training_pair(raw_u16, prev_u16, next_u16, cfg: CN.CombConfig):
 
 
 def training_pairs_from_frames(frames_u16, cfg: CN.CombConfig = None,
-                               device=DEFAULT_DEVICE
+                               device=DEFAULT_DEVICE,
+                               graphs: Union[bool, GraphCache] = True
                                ) -> Tuple[np.ndarray, np.ndarray]:
     """(N, 525, 910) u16 .tbc frames -> (inputs (N-2, H, W, 3), clp
     targets (N-2, H, W)) float32 numpy, supervised by the no-flow 3D comb
     (interior frames only: the 3D stencil needs both temporal neighbours).
 
     A tensor of frames is processed on its device, numpy frames on
-    `device`; PAIR_WINDOW frames are on the device at a time."""
+    `device`; PAIR_WINDOW frames are on the device at a time.  graphs=True
+    replays each window (JAX's jitted `_training_pairs_win`) as one CUDA
+    graph a window length on the card (eager on the CPU); False runs it
+    eagerly; a GraphCache is used as given."""
     if cfg is None:
         cfg = CN.CombConfig(dim=3, opticalflow=False)
     if isinstance(frames_u16, torch.Tensor):
@@ -279,6 +289,7 @@ def training_pairs_from_frames(frames_u16, cfg: CN.CombConfig = None,
     n = frames.shape[0]
     if n < 3:
         raise ValueError('need >= 3 frames for 3D-comb supervision')
+    cache = as_cache(graphs, dev)
     inputs = np.empty((n - 2, CN.IN_Y, CN.IN_X, 3), np.float32)
     targets = np.empty((n - 2, CN.IN_Y, CN.IN_X), np.float32)
     for e0 in range(1, n - 1, PAIR_WINDOW):
@@ -287,18 +298,25 @@ def training_pairs_from_frames(frames_u16, cfg: CN.CombConfig = None,
         if not isinstance(win, torch.Tensor):
             win = torch.from_numpy(win.astype(np.int32))
         win = win.to(dev, torch.int32)
-        inp, clp = _training_pair(win[1:-1], win[:-2], win[2:], cfg)
+        # replayed, the pairs are the graph's static outputs: copied out
+        # before the next window's replay
+        inp, clp = cache(('training_pair', cfg),
+                         lambda w: _training_pair(w[1:-1], w[:-2], w[2:],
+                                                  cfg), (win,))
         inputs[e0 - 1:e1 - 1] = inp.cpu().numpy()
         targets[e0 - 1:e1 - 1] = clp.cpu().numpy()
     return inputs, targets
 
 
 def write_training_file(frames_u16, path: str, cfg: CN.CombConfig = None,
-                        device=DEFAULT_DEVICE) -> int:
+                        device=DEFAULT_DEVICE,
+                        graphs: Union[bool, GraphCache] = True) -> int:
     """Write a .npz of (inputs, clp) float32 training pairs from real .tbc
     frames (the JAX package's format: either package's trainer reads the
-    other's files); returns the number of pairs written."""
-    inputs, clp = training_pairs_from_frames(frames_u16, cfg, device)
+    other's files); returns the number of pairs written.  graphs as in
+    training_pairs_from_frames."""
+    inputs, clp = training_pairs_from_frames(frames_u16, cfg, device,
+                                             graphs)
     np.savez_compressed(path, inputs=inputs, clp=clp)
     return inputs.shape[0]
 
@@ -359,15 +377,71 @@ def train_step(model: NNComb, opt: torch.optim.Optimizer,
 
 def make_optimizer(model: NNComb, lr: float) -> torch.optim.Optimizer:
     """optax.adam(lr)'s update: beta 0.9/0.999, eps 1e-8 added outside the
-    square root, bias correction on both moments."""
+    square root, bias correction on both moments.  On a CUDA device it is
+    the capturable Adam (its step count and bias corrections on the
+    device, no host read), which a CUDA graph can capture, for eager and
+    graphed training alike, so that the two compare bit for bit; on the
+    CPU (where capturable Adam does not run) the plain one."""
+    on_card = next(model.parameters()).device.type == 'cuda'
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8)
+                            eps=1e-8, capturable=on_card)
+
+
+class Trainer:
+    """The training loop's step, JAX's jitted `jstep`: a batch drawn from
+    `generator` (synthetic scenes, or crops of `data`, a pair of tensors
+    on the model's device), the forward and backward pass and Adam's
+    update (`train_step`, over `mesh` when given).
+
+    `graphs` (utils/graphs.py): on the card each step after the first
+    replays draw, forward, backward and update as one CUDA graph, keyed by
+    (batch, h, w, features, data shape), with the parameters, Adam's
+    state and the data read in place and the generator registered, so a
+    graphed run draws and trains as an eager one.  Adam creates its state
+    at its first step, so the first step runs eagerly outside the cache;
+    the cache then warms up once and captures once for the whole run.
+    True picks the device's default (graphs on the card), False runs
+    every step eagerly, a GraphCache is used as given; `train_nn_comb`
+    routes a host-staged mesh to an eager cache."""
+
+    def __init__(self, model: NNComb, opt: torch.optim.Optimizer,
+                 generator: torch.Generator, batch: int, h: int, w: int,
+                 data: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 mesh=None, graphs: Union[bool, GraphCache] = True):
+        self.model, self.opt, self.generator = model, opt, generator
+        self.batch, self.h, self.w = batch, h, w
+        self.data, self.mesh = data, mesh
+        self.graphs = as_cache(graphs, next(model.parameters()).device)
+        self.key = ('nn_train_step', batch, h, w, model.features,
+                    None if data is None else tuple(data[0].shape))
+
+    def _step(self) -> torch.Tensor:
+        if self.data is not None:
+            inp, clp_t = _file_batch(self.generator, self.data, self.batch,
+                                     self.h, self.w)
+        else:
+            inp, clp_t, *_ = synth_batch(self.generator, self.batch,
+                                         self.h, self.w)
+        return train_step(self.model, self.opt, inp, clp_t, self.mesh)
+
+    def step(self) -> torch.Tensor:
+        """One step; returns its loss (0-d, before the update).  Replayed,
+        the loss is the graph's static output, which the next step
+        overwrites."""
+        if not self.opt.state:
+            return self._step()
+        reads = list(self.model.parameters()) + [
+            t for st in self.opt.state.values() for t in st.values()
+            if isinstance(t, torch.Tensor)] + list(self.data or ())
+        return self.graphs(self.key, self._step, (), reads=reads,
+                           generators=(self.generator,))
 
 
 def train_nn_comb(generator: torch.Generator = None, steps: int = 250,
                   batch: int = 8, h: int = 64, w: int = 256,
                   lr: float = 3e-3, features: Tuple[int, ...] = (24, 24),
-                  data=None, device=DEFAULT_DEVICE, mesh=None):
+                  data=None, device=DEFAULT_DEVICE, mesh=None,
+                  graphs: Union[bool, GraphCache, None] = None):
     """Train the chroma separator on `device`; returns (model,
     final_loss).
 
@@ -379,8 +453,14 @@ def train_nn_comb(generator: torch.Generator = None, steps: int = 250,
     (parallel/mesh.py) the train step runs data-parallel over its 'dp'
     axis on the mesh's device: every rank draws the same weights and
     batches from its identically seeded generator, and the returned loss
-    is the mean over 'dp'."""
+    is the mean over 'dp'.
+
+    graphs: as `Trainer`'s, by default one CUDA graph for the steps on the
+    card.  None (the default) is True, except on a host-staged gloo mesh
+    (parallel/mesh.py), whose all_reduce copies through host memory: it
+    trains eagerly, and True there raises (utils/graphs.py::as_cache)."""
     dev = mesh.device if mesh is not None else resolve_device(device)
+    graphs = as_cache(graphs, dev, mesh is not None and mesh.staged)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     model = NNComb(features).to(dev)
@@ -389,13 +469,10 @@ def train_nn_comb(generator: torch.Generator = None, steps: int = 250,
     if data is not None:
         data = tuple(torch.as_tensor(np.asarray(a, np.float32)).to(dev)
                      for a in data)
+    trainer = Trainer(model, opt, generator, batch, h, w, data, mesh, graphs)
     loss = None
     for _ in range(steps):
-        if data is not None:
-            inp, clp_t = _file_batch(generator, data, batch, h, w)
-        else:
-            inp, clp_t, *_ = synth_batch(generator, batch, h, w)
-        loss = train_step(model, opt, inp, clp_t, mesh)
+        loss = trainer.step()
     return model, float(loss)
 
 
@@ -404,12 +481,36 @@ def train_nn_comb(generator: torch.Generator = None, steps: int = 250,
 
 @torch.no_grad()
 def comb_frame_nn(raw_u16: torch.Tensor, model: NNComb, aburstlev: float,
-                  cfg: CN.CombConfig):
+                  cfg: CN.CombConfig, graphs: Optional[GraphCache] = None):
     """Frame (IN_Y, IN_X) -> (RGB48 (linesout, 910, 3) int32 holding u16
     values, the new AGC carry) with the NN chroma estimate in place of the
     2D stencil (the reference's `-N` path, attic/combg2-4nn.cxx:1136-1141);
     everything downstream is the standard comb tail.  Runs on the frame's
-    device (the model must be there)."""
+    device (the model must be there).
+
+    The AGC levels come first, on the host (`burst_levels`: a read-back);
+    the forward pass and the comb tail then run as one call of `graphs`
+    (JAX's jitted `comb_frame_nn`), keyed by the configuration and the
+    model's features, the levels a dynamic input and the weights read in
+    place.  A caller that combs many frames passes one GraphCache;
+    replayed, the RGB is the graph's static output, which the next frame's
+    replay overwrites."""
+    levels, ab = CN.burst_levels(raw_u16[None], aburstlev, cfg)
+
+    def core(raw_u16, levels):
+        return _comb_nn_core(raw_u16, levels, model, cfg)
+
+    if graphs is None:
+        return core(raw_u16, levels[0]), ab
+    return graphs(('comb_frame_nn', cfg, model.features), core,
+                  (raw_u16, levels[0]),
+                  reads=tuple(model.parameters())), ab
+
+
+def _comb_nn_core(raw_u16: torch.Tensor, levels: torch.Tensor,
+                  model: NNComb, cfg: CN.CombConfig) -> torch.Tensor:
+    """comb_frame_nn after the AGC: the NN chroma plane, then the comb
+    tail to RGB48 with the frame's AGC `levels`."""
     dev = raw_u16.device
     raw = raw_u16.to(torch.float32)
     invert_col = CN._invert_col(raw_u16, cfg)
@@ -427,5 +528,4 @@ def comb_frame_nn(raw_u16: torch.Tensor, model: NNComb, aburstlev: float,
         i, q = CN.filter_iq(i, q, cfg)
     y = CN.do_ynr(y, cfg)
     i, q = CN.do_cnr(i, q, cfg)
-    levels, ab = CN.burst_levels(raw_u16[None], aburstlev, cfg)
-    return CN.to_rgb(y, i, q, levels[0], cfg), ab
+    return CN.to_rgb(y, i, q, levels, cfg)

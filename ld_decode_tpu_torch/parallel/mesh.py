@@ -27,11 +27,26 @@ support).  The bytes are tiny (per field a few int32 values and a
 1,056-sample halo; per frame a 525-value burst column; one edge frame a
 comb shard; the NN's gradients), and the compute stays on each rank's
 device: nothing moves a rank's work to the CPU.
+
+CUDA graphs (utils/graphs.py, the JAX package's `jax.jit` of each sharded
+call): on an NCCL mesh each `build_*` function's step replays its device
+program as one CUDA graph a rank, collectives included (`graphs=None`,
+the default).  A host-staged gloo mesh runs eagerly: its collectives copy
+through host memory, which a capture cannot hold (utils/graphs.py::
+as_cache, `staged`; asking for graphs there raises).  One card shows only
+part of this: `Mesh.all_gather` and `all_reduce_mean` return before any
+collective in a world of one rank, and NCCL refuses two ranks on one
+card, so there the 1-rank NCCL world captures everything around the
+collectives and the 2-rank gloo world runs eagerly.  On the CPU the gloo
+worlds of tests/test_torch_parallel.py run them through the emulated
+protocol, collectives included.  NCCL collectives inside a capture stay
+unverified until a machine with two or more cards runs them
+(chip_smoke.py phase 22).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -41,6 +56,7 @@ from ld_decode_tpu_torch.ops.filters import DemodBank
 from ld_decode_tpu_torch.tbc import sync as S
 from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
+from ld_decode_tpu_torch.utils.graphs import GraphCache, as_cache
 from ld_decode_tpu_torch.utils.params import DecoderConfig
 
 
@@ -142,7 +158,8 @@ def make_mesh(n_devices: Optional[int] = None, dp: Optional[int] = None,
 
 
 def build_sharded_demod(cfg: DecoderConfig, bank: DemodBank, mesh: Mesh,
-                        nblocks: int, nfields: int):
+                        nblocks: int, nfields: int,
+                        graphs: Union[bool, GraphCache, None] = None):
     """Multi-rank demod step: fn(body, mtf_level) -> (demod, pidx, pval).
 
     body: this rank's (nfields/dp, nblocks/sp * block_keep) float32 block
@@ -150,7 +167,12 @@ def build_sharded_demod(cfg: DecoderConfig, bank: DemodBank, mesh: Mesh,
     block_keep) bodies.  Returns its demod tap (same tile), and each of
     its fields' sync peak indices and values over the whole field
     (replicated along sp).  The halo after the globally last block wraps
-    to the first shard's head, as JAX's circular ppermute does."""
+    to the first shard's head, as JAX's circular ppermute does.
+
+    graphs (None: by the mesh, as the module says): the step is one CUDA
+    graph a body shape on an NCCL mesh, mtf_level a tensor input;
+    replayed, its outputs are the graph's static tensors, which the next
+    call overwrites."""
     keep = cfg.block_keep
     overlap = cfg.blocklen - keep
     n_sp = mesh.sp
@@ -177,7 +199,15 @@ def build_sharded_demod(cfg: DecoderConfig, bank: DemodBank, mesh: Mesh,
         pidx, pval = S.find_sync_peaks(sync_full, window)
         return out['demod'], pidx, pval
 
-    return local_step
+    cache = as_cache(graphs, mesh.device, mesh.staged)
+    key = ('sharded_demod', id(bank), cfg, nblocks, nfields)
+
+    def step(body: torch.Tensor, mtf_level):
+        # mtf_level a tensor input: a capture would freeze a host value
+        return cache(key, local_step,
+                     (body, D._level(mtf_level, bank.rdtype, body.device)))
+
+    return step
 
 
 def build_pipeline_batch_sharded(cfg: DecoderConfig, bank: DemodBank,
@@ -185,7 +215,8 @@ def build_pipeline_batch_sharded(cfg: DecoderConfig, bank: DemodBank,
                                  batch: int, field_pitch: int,
                                  colorlevel: float = 1.45,
                                  colorphase: float = 91.5,
-                                 codec: bool = False):
+                                 codec: bool = False,
+                                 graphs: Union[bool, GraphCache, None] = None):
     """Multi-rank `fused.field_pipeline_batch`: the whole speculative
     field batch -- demod, vsync/line voting, hsync/burst (or pilot)
     refinement, the picture resample (K1), audio chase, VBI -- sharded
@@ -207,7 +238,15 @@ def build_pipeline_batch_sharded(cfg: DecoderConfig, bank: DemodBank,
     slice.  codec=True adds the picture codec's payloads of the rank's
     own fields ('pic_tab', 'dense', 'dense_q', 'rows2'): each rank
     compacts its fields, as each of JAX's shards does, so the ranks' used
-    prefixes in rank order are the whole batch's."""
+    prefixes in rank order are the whole batch's.
+
+    graphs (None: by the mesh, as the module says): on an NCCL mesh the
+    whole call is one CUDA graph a rank, keyed as the single-rank batch
+    call is (tbc/pipeline.py) with the capture read in place and start0,
+    audio_offset0, mtf_level and valid_len 0-d tensor inputs; K1's
+    launches are credited on each replay.  Replayed, the outputs and the
+    chained scalars are the graph's static tensors, which the next call
+    overwrites: a caller clones what it keeps longer."""
     from ld_decode_tpu_torch.tbc import fused as FU
 
     nd = mesh.size
@@ -218,18 +257,34 @@ def build_pipeline_batch_sharded(cfg: DecoderConfig, bank: DemodBank,
     def gather_carry(carry: torch.Tensor) -> torch.Tensor:
         return torch.cat(mesh.all_gather(carry, mesh.world_group), dim=1)
 
-    def shard_fn(capture: torch.Tensor, start0, audio_offset0, mtf_level,
-                 valid_len: Optional[int] = None):
+    cache = as_cache(graphs, mesh.device, mesh.staged)
+    key = ('field_pipeline_batch_sharded', id(bank), cfg, nblocks, n_audio1,
+           lb, field_pitch, colorlevel, colorphase, codec, mesh.rank)
+
+    def call(capture, start0, audio_offset0, mtf_level, valid_len):
         return FU.field_pipeline_batch(
             capture, start0, audio_offset0, mtf_level, bank, cfg, nblocks,
             n_audio1, lb, field_pitch, colorlevel, colorphase, valid_len,
             batch_index=mesh.rank * lb, gather_carry=gather_carry,
             codec=codec)
 
+    def shard_fn(capture: torch.Tensor, start0, audio_offset0, mtf_level,
+                 valid_len=None):
+        dev = capture.device
+        if valid_len is None:
+            valid_len = capture.shape[0]
+        # the scalars are tensor inputs: a capture would freeze host values
+        return cache(key, lambda *a: call(capture, *a), (
+            FU._scalar(start0, torch.int32, dev),
+            FU._scalar(audio_offset0, torch.float32, dev),
+            FU._scalar(mtf_level, torch.float32, dev),
+            FU._scalar(valid_len, torch.int32, dev)), reads=(capture,))
+
     return shard_fn
 
 
-def build_sharded_comb3d(comb_cfg, mesh: Mesh, nframes: int):
+def build_sharded_comb3d(comb_cfg, mesh: Mesh, nframes: int,
+                         graphs: Union[bool, GraphCache, None] = None):
     """Multi-rank 3D comb (no optical flow): fn(frames) -> RGB.
 
     frames: this rank's (nframes/size, 525, 910) consecutive .tbc frames
@@ -239,15 +294,30 @@ def build_sharded_comb3d(comb_cfg, mesh: Mesh, nframes: int):
     (the globally first and last frames see wrapped neighbours, warm-up
     frames in the reference too).  The burst AGC EMA (comb-ntsc.cxx:
     563-564) carries across frames exactly: every rank gathers all
-    frames' burst columns, replays the whole chain on the host
-    (`agc_levels`, float32) and combs each of its frames from that
-    frame's entry state.  Equal to the sequential `comb_frame` chain."""
-    from ld_decode_tpu_torch.comb.comb_ntsc import agc_levels, comb_frame
+    frames' burst columns and replays the whole chain on the host once
+    (`agc_levels`, float32), then combs its frames with their levels.
+    Equal to the sequential `comb_frame` chain: the frames are combed one
+    by one, since a batched pass rounds otherwise on the card (cuBLAS and
+    cuDNN pick their kernels by the row count of the IIR matmuls and FIR
+    convolutions).
+
+    graphs (None: by the mesh, as the module says): the comb after the
+    gathers and the AGC, all the rank's frames, is one CUDA graph a rank
+    on an NCCL mesh, the levels a tensor input; replayed, the RGB is the
+    graph's static tensor, which the next call overwrites."""
+    from ld_decode_tpu_torch.comb.comb_ntsc import _frame_core, agc_levels
 
     nd = mesh.size
     if nframes % nd:
         raise ValueError(f'{nframes} frames do not split over {nd} ranks')
     di = mesh.rank
+    cache = as_cache(graphs, mesh.device, mesh.staged)
+
+    def comb(frames, prevs, nexts, levels):
+        # Split3D(f=1): p3line = newer frame, n3line = older frame
+        return torch.stack([
+            _frame_core(frames[k], nexts[k], prevs[k], levels[k],
+                        comb_cfg)[0] for k in range(frames.shape[0])])
 
     def local_step(frames: torch.Tensor) -> torch.Tensor:
         edges = mesh.all_gather(torch.stack([frames[0], frames[-1]]),
@@ -256,17 +326,11 @@ def build_sharded_comb3d(comb_cfg, mesh: Mesh, nframes: int):
         nexts = torch.cat([frames[1:], edges[(di + 1) % nd][:1]])
         burst = torch.cat(mesh.all_gather(frames[:, :, 1].to(torch.int32),
                                           mesh.world_group)).cpu().numpy()
-        carry, entries = -1.0, []
-        for e in range(burst.shape[0]):
-            entries.append(carry)
-            _lv, carry = agc_levels(burst[e:e + 1], carry, comb_cfg)
         F_l = frames.shape[0]
-        rgb = []
-        for k in range(F_l):
-            # Split3D(f=1): p3line = newer frame, n3line = older frame
-            out, _ab, _extras = comb_frame(frames[k], nexts[k], prevs[k],
-                                           entries[di * F_l + k], comb_cfg)
-            rgb.append(out)
-        return torch.stack(rgb)
+        levels, _ = agc_levels(burst, -1.0, comb_cfg)
+        levels = torch.from_numpy(levels[di * F_l:(di + 1) * F_l]).to(
+            frames.device)
+        return cache(('sharded_comb3d', comb_cfg), comb,
+                     (frames, prevs, nexts, levels))
 
     return local_step

@@ -37,12 +37,24 @@ differs there raises (`FrozenValueError`), in the emulated mode too: such
 a value must be a dynamic input or part of the key.  Values read through
 an object's attributes are not seen.
 
+A training step (models/nn_comb.py) needs two more things.  The random
+generators a function draws from (`generators`) are registered with its
+graph before the capture and are part of its key: a replay advances each
+as an eager call would, so a graphed run draws what an eager run from the
+same seed draws.  The state it updates in place (parameters, gradients,
+the optimiser's moments) is among its `reads`, which must all exist when
+the key is taken: a caller whose state appears at its first call (Adam's)
+makes that call outside the cache.  As PyTorch's whole-network capture
+recipe asks, a warm-up on the card runs on a side stream, so that a
+captured backward pass finds no state of the default stream.
+
 A capture that fails raises: on the card nothing falls back to eager.  On
 the CPU the cache runs the function eagerly (mode 'eager').  Mode
 'emulate', which only a caller can ask for and only off the card, keeps
 the static-buffer protocol without a graph: the function runs eagerly on
-the static inputs and its results are copied into the static outputs, so
-the tests can show on the CPU what a replay's aliasing does.
+the static inputs (once a call, the capturing call included, as a graph
+runs once a replay) and its results are copied into the static outputs,
+so the tests can show on the CPU what a replay's aliasing does.
 """
 
 from __future__ import annotations
@@ -107,12 +119,25 @@ def _baked(fn: Callable) -> tuple:
             tuple(repr(v) if _plain(v) else None for v in vals))
 
 
-def as_cache(graphs, device) -> 'GraphCache':
+def as_cache(graphs, device, staged: bool = False) -> 'GraphCache':
     """A caller's `graphs` argument as a cache: a GraphCache as given,
-    True the device's default mode, False eager."""
+    True the device's default mode, False eager, None True.
+
+    staged: the caller's collectives copy through host memory (a
+    host-staged gloo mesh, parallel/mesh.py), which a capture cannot
+    hold.  Then None is eager (a routing rule, not a fallback) and asking
+    for graphs (True, or a GraphCache in 'graph' mode) raises."""
+    if staged:
+        if graphs is True or (isinstance(graphs, GraphCache)
+                              and graphs.mode == 'graph'):
+            raise ValueError('a host-staged gloo mesh runs eagerly: its '
+                             'collectives copy through host memory, which '
+                             'a CUDA graph cannot capture')
+        if graphs is None:
+            graphs = False
     if isinstance(graphs, GraphCache):
         return graphs
-    return GraphCache(device, None if graphs else 'eager')
+    return GraphCache(device, 'eager' if graphs is False else None)
 
 
 @dataclass
@@ -126,6 +151,7 @@ class _Graph:
     credit: List[int] = field(default_factory=list)
     capture_s: float = 0.0
     baked: tuple = ()                    # _baked(fn) at the capture
+    generators: tuple = ()               # held: the key holds their ids
 
 
 def _signature(t: torch.Tensor) -> tuple:
@@ -154,6 +180,7 @@ class GraphCache:
         self.mode = mode
         self._graphs: Dict[tuple, _Graph] = {}
         self._seen: set = set()
+        self._side = None                # the warm-ups' stream on the card
         self.counts = {'eager_warmups': 0, 'captures': 0, 'replays': 0}
         self.capture_seconds: Dict[tuple, float] = {}
 
@@ -164,23 +191,30 @@ class GraphCache:
         return self.mode != 'eager'
 
     def __call__(self, key, fn: Callable, inputs: Sequence[torch.Tensor],
-                 reads: Sequence[torch.Tensor] = ()):
+                 reads: Sequence[torch.Tensor] = (),
+                 generators: Sequence[torch.Generator] = ()):
         """fn(*inputs) through the cache.  key: the call's static
         arguments (hashable); inputs: the dynamic tensors, copied into the
-        graph's static inputs on every replay; reads: tensors fn reads in
-        place, keyed by identity and shape."""
+        graph's static inputs on every replay; reads: tensors fn reads or
+        updates in place, keyed by identity and shape; generators: the
+        torch.Generators fn draws from, keyed by identity and registered
+        with the graph."""
         if self.mode == 'eager':
             return fn(*inputs)
         full = (key,
                 tuple((t.data_ptr(),) + _signature(t) for t in reads),
-                tuple(_signature(t) for t in inputs))
+                tuple(_signature(t) for t in inputs),
+                tuple(id(gen) for gen in generators))
         g = self._graphs.get(full)
+        run = True
         if g is None:
             if full not in self._seen:
                 self._seen.add(full)
                 self.counts['eager_warmups'] += 1
-                return fn(*inputs)
-            g = self._capture(full, fn, inputs)
+                return self._warm_up(fn, inputs)
+            g = self._capture(full, fn, inputs, generators)
+            # emulated, the capture ran fn: that run is this call's
+            run = self.mode == 'graph'
         else:
             if _baked(fn) != g.baked:
                 raise FrozenValueError(
@@ -190,16 +224,34 @@ class GraphCache:
                     f'tensor input or put it in the key')
             for s, x in zip(g.static_in, inputs):
                 s.copy_(x)
-        self._replay(g, fn)
+        self._replay(g, fn, run)
         return tree_unflatten(list(g.static_out), g.spec)
 
+    def _warm_up(self, fn: Callable, inputs: Sequence[torch.Tensor]):
+        """A key's first call, eager; on the card on a side stream that
+        waits for the caller's stream and is waited for by it."""
+        if self.mode != 'graph':
+            return fn(*inputs)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(main)
+        with torch.cuda.device(self.device), torch.cuda.stream(self._side):
+            out = fn(*inputs)
+        main.wait_stream(self._side)
+        return out
+
     def _capture(self, full: tuple, fn: Callable,
-                 inputs: Sequence[torch.Tensor]) -> _Graph:
-        g = _Graph(static_in=[x.clone() for x in inputs], baked=_baked(fn))
+                 inputs: Sequence[torch.Tensor],
+                 generators: Sequence[torch.Generator] = ()) -> _Graph:
+        g = _Graph(static_in=[x.clone() for x in inputs], baked=_baked(fn),
+                   generators=tuple(generators))
         before = _counts()
         t0 = time.perf_counter()
         if self.mode == 'graph':
             g.graph = torch.cuda.CUDAGraph()
+            for gen in generators:
+                g.graph.register_generator_state(gen)
             pool = torch.cuda.graph_pool_handle()
             # a garbage collection inside the capture could destroy another
             # graph, which the capture does not permit (it invalidates the
@@ -228,14 +280,15 @@ class GraphCache:
         self.capture_seconds[full] = g.capture_s
         return g
 
-    def _replay(self, g: _Graph, fn: Callable):
+    def _replay(self, g: _Graph, fn: Callable, run: bool = True):
         """Replay g; emulated, run fn (the call's function, the same for
-        its key) on the static inputs into the static outputs."""
+        its key) on the static inputs into the static outputs, unless
+        `run` is False (the capture's own run was this replay's)."""
         before = _counts()
         if self.mode == 'graph':
             with torch.cuda.device(self.device):
                 g.graph.replay()
-        else:
+        elif run:
             leaves, _ = tree_flatten(fn(*g.static_in))
             for s, x in zip(g.static_out, leaves):
                 if isinstance(s, torch.Tensor):

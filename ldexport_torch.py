@@ -308,8 +308,11 @@ def main(argv=None):
     sink.close()
     if train_frames is not None and len(train_frames) >= 3:
         from ld_decode_tpu_torch.models.nn_comb import write_training_file
+        # eager pair windows: -t makes at most 16 of them, too few to repay
+        # a capture (chip_smoke.py phase 19 times the pairs both ways)
         npairs = write_training_file(np.stack(train_frames),
-                                     args.out + '.train.npz', device=device)
+                                     args.out + '.train.npz', device=device,
+                                     graphs=False)
         print(f'wrote {npairs} training pairs to {args.out}.train.npz',
               file=sys.stderr)
     print(f'wrote {sink.nframes} frames', file=sys.stderr)

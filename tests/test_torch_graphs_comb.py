@@ -1,9 +1,9 @@
 """PyTorch port, the comb windows under the compile boundary
 (utils/graphs.py): NTSCCombBatch's ring (dim 3 without flow, `-F`) and
 simple (dims 1/2) windows, PALCombBatch's simple and 3D windows with frame
-0's 2D head and the 2D flush frame, and the streaming PALComb's
-`comb_pal_frame`, each through a GraphCache in the emulated protocol
-against the eager comb, bit for bit.
+0's 2D head and the 2D flush frame, the streaming PALComb's
+`comb_pal_frame` and the combs' codec=True RGB encode, each through a
+GraphCache in the emulated protocol against the eager comb, bit for bit.
 
 Every key serves at least 3 windows of changing frames (a warm-up, a
 capture, then replays), so a static input left stale or a value frozen
@@ -205,6 +205,55 @@ def test_window_programs_no_host_copies(monkeypatch, program):
     assert made == {'from_numpy': 0, 'as_tensor': 0, 'tensor': 0}
 
 
+def _codec_run(system, out8, graphs, codec=True):
+    """dim 2, one frame a feed, every window fed before the first is
+    collected: each window's prefix top-up (the first windows' estimate is
+    empty, so every window tops up) reads its dense buffers after the
+    later windows' replays of the encode key."""
+    if system == 'NTSC':
+        comb = TB.NTSCCombBatch(TC.CombConfig(dim=2), out8=out8,
+                                device='cpu', codec=codec, graphs=graphs)
+        frames = _ntsc_frames()
+    else:
+        comb = TB.PALCombBatch(TP.CombPALConfig(dim=2), out8=out8,
+                               device='cpu', codec=codec, graphs=graphs)
+        frames = _pal_frames()
+    handles = [comb.feed(frames[k:k + 1]) for k in range(frames.shape[0])]
+    rgb, words = [], []
+    for h in handles:
+        r, w = comb.collect(h)
+        rgb += r
+        words += w
+    return comb, rgb, words
+
+
+@pytest.mark.parametrize('system,out8', [('NTSC', False), ('NTSC', True),
+                                         ('PAL', False)])
+def test_codec_encode_equals_eager(system, out8):
+    """codec=True: the RGB encode (JAX's `_rgb_encode`) through the comb's
+    emulated cache, one key a window shape and depth (a warm-up, a
+    capture, 4 replays), gives the eager codec's frames and words bit for
+    bit, and the raw copy's; no frame fell back to black.  With out8 the
+    raw copy's cut to 8 bits replays as well."""
+    _, raw, raw_w = _codec_run(system, out8, False, codec=False)
+    _, re_, we = _codec_run(system, out8, False)
+    cg, rg, wg = _codec_run(system, out8, emulated())
+    assert len(rg) == 6
+    _equal(re_, rg)
+    _equal(raw, rg)
+    # the raw copy's cut to 8 bits (JAX's `_to_rgb8`) replays too
+    cr, rr, _ = _codec_run(system, out8, emulated(), codec=False)
+    _equal(raw, rr)
+    assert cr.graphs.counts['captures'] == (2 if out8 else 1)
+    assert all(np.array_equal(a, b) for a, b in zip(we + raw_w, wg + wg))
+    assert cg.stats['rgb_decode_fallback'] == 0
+    assert cg.stats['rgb_topups'] == 12
+    enc = [k for k in cg.graphs._graphs if k[0][0] == 'rgb_encode']
+    assert len(enc) == 1
+    assert cg.graphs.counts == {'eager_warmups': 2, 'captures': 2,
+                                'replays': 10}
+
+
 @pytest.mark.cuda
 def test_card_comb_graphs_equal_eager():
     """On the card: the four new keys replayed as CUDA graphs give the
@@ -230,3 +279,13 @@ def test_card_comb_graphs_equal_eager():
                        for g in (False, True))
     _equal(a, b)
     assert cg.graphs.counts['replays'] >= 3
+    # the codec=True encode key, both depths
+    for out8 in (False, True):
+        comb = TB.NTSCCombBatch(TC.CombConfig(dim=2), out8=out8,
+                                device='cuda', codec=True)
+        hs = [comb.feed(ntsc[k:k + 1].cuda()) for k in range(ntsc.shape[0])]
+        b = [f for h in hs for f in comb.collect(h)[0]]
+        _, a, _ = _ntsc_run(TC.CombConfig(dim=2), ntsc, False, 'cuda')
+        a = [(x >> 8).astype(np.uint8) if out8 else x for x in a]
+        _equal(a, b)
+        assert comb.stats['rgb_decode_fallback'] == 0

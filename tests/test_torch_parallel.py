@@ -32,6 +32,13 @@ Budgets:
     component of the first step lies within 10x the two runs' gradient
     difference of zero (Adam's first step moves a parameter by
     lr * sign(g)).
+  * graphs: in the 2-rank world each sharded function (and the
+    data-parallel trainer) also runs through the emulated graph
+    protocol, collectives included, 3 calls with changing inputs (a
+    warm-up, a capture, a replay; the batch calls' start0,
+    audio_offset0, mtf_level and valid_len all change); the first two
+    calls' outputs differ from the replay's, which equals the eager call
+    bit for bit.
 The JAX pipeline and comb run on a 4-device mesh; the port's 2-rank
 world is held to them through its equality with the single-rank path."""
 
@@ -454,3 +461,35 @@ def test_nn_comb_train_dp_mesh(runs, world):
         for name, v in want['nn'].items():
             np.testing.assert_allclose(r[f'nn_{name}'], v,
                                        atol=NN_PARAM_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize('name', ['demod', 'NTSC', 'PAL', 'comb', 'nn'])
+def test_sharded_graphs_equal_eager(runs, name):
+    """The 2-rank gloo world's sharded functions, emulated: the
+    sharded demod, the NTSC and PAL batch calls (codec=True), the 3D comb
+    and the data-parallel trainer; each key warmed up and captured once
+    on other inputs, and the replay on the eager call's inputs equal to
+    it bit for bit on every rank."""
+    for rank in runs['worlds'][W.GRAPH_WORLD]['ranks']:
+        if name == 'nn':
+            # 3 steps: the first eager (Adam's state), a warm-up, a capture
+            np.testing.assert_array_equal(rank['g_nn_counts'], [1, 1, 1])
+            assert float(rank['g_nn_loss']) == float(rank['nn_loss'])
+            keys = [k[2:] for k in rank if k.startswith('g_nn_')
+                    and k not in ('g_nn_counts', 'g_nn_loss')]
+        else:
+            # a warm-up, a capture (its own replay), a replay
+            np.testing.assert_array_equal(rank[f'g_{name}_counts'],
+                                          [1, 1, 2])
+            # the warm-up's and the capture's inputs were not the replay's
+            np.testing.assert_array_equal(rank[f'g_{name}_varied'],
+                                          [True, True])
+            keys = {'demod': ['demod', 'pidx', 'pval'],
+                    'comb': ['comb_rgb']}.get(name) or [
+                k[2:] for k in rank
+                if k.startswith((f'g_{name}_', f'g_codec_{name}_'))
+                and not k.endswith(('_counts', '_varied'))]
+        assert len(keys) >= 3 or name == 'comb', keys
+        for k in keys:
+            np.testing.assert_array_equal(rank['g_' + k], rank[k],
+                                          err_msg=k)
