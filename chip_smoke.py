@@ -172,7 +172,14 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      -d 2 over the woven frames of phases 7 and 12 played twice, and the
      streaming PAL comb (-d 3) over 12 of them, RGB48 and words bit-equal,
      t_feed a window or ms a frame, RGB frames/s, device ops, launch
-     calls and graph launches a window, capture seconds a key.
+     calls and graph launches a window, capture seconds a key;
+ 28. the repo's bench through the port: bench_torch.py --quick in its own
+     process (each of bench.py's eight stages, one visit of one pass, on
+     captures encoded for it) -- every stage's rate above 0, its checks
+     held (frame numbers consecutive, every RGB frame of its shape and back
+     but those the comb holds), K1 launched in every stage, K2 in the two
+     flow chains and in no other stage; the rates, warm-up seconds and
+     launches printed.
 Every decode and chain phase runs with the default graphs on.
 The line before the last is the kernel JSON; the last line is the result.
 """
@@ -772,13 +779,14 @@ def _write_capture(np, cap, cfg, d: str) -> str:
 
 
 def _run_cli(script: str, argv):
+    """Run one of the repo's scripts; returns (seconds, its stdout)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.join(ROOT, script)] + argv,
                           capture_output=True, text=True, cwd=ROOT,
                           timeout=600)
     if proc.returncode != 0:
         fail(f'{script} exit {proc.returncode}:\n{proc.stderr[-3000:]}')
-    return time.perf_counter() - t0
+    return time.perf_counter() - t0, proc.stdout
 
 
 def cli_phase(np, cap, cfg, d: str, title='6 cli'):
@@ -789,7 +797,8 @@ def cli_phase(np, cap, cfg, d: str, title='6 cli'):
     want = 8 * cfg.sys.frame_lines * cfg.sys.outlinelen * 2
     path = _write_capture(np, cap, cfg, d)
     out = os.path.join(d, 'out')
-    dt = _run_cli('lddecode_torch.py', [path, out, '-l', '8', '-q'] + flags)
+    dt, _ = _run_cli('lddecode_torch.py',
+                     [path, out, '-l', '8', '-q'] + flags)
     tbc = os.path.getsize(out + '.tbc')
     pcm = os.path.getsize(out + '.pcm')
     print(f'lddecode_torch.py {" ".join(flags + ["-l", "8"])}: {dt:.1f} '
@@ -935,8 +944,8 @@ def chain_cli_phase(np, cap, cfg, title='9 chain cli'):
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as d:
         path = _write_capture(np, cap, cfg, d)
         out = os.path.join(d, 'out')
-        dt = _run_cli('ldchain_torch.py', [path, out, '-l', '6', '--raw',
-                                           '-q'] + flags)
+        dt, _ = _run_cli('ldchain_torch.py', [path, out, '-l', '6', '--raw',
+                                              '-q'] + flags)
         rgb = os.path.getsize(out + '.rgb')
         pcm = os.path.getsize(out + '.audio.pcm')
         print(f'ldchain_torch.py {" ".join(flags + ["-l", "6"])}: {dt:.1f} '
@@ -3643,7 +3652,7 @@ def seq_graphs_phase(torch, np, systems, d: str):
         outs = []
         for flags in (['--no-graphs'], []):
             out = os.path.join(d, f'cli_{system}{"".join(flags)}')
-            dt = _run_cli('lddecode_torch.py', [
+            dt, _ = _run_cli('lddecode_torch.py', [
                 path, out, '--batch', '1', '-l', '4', '-q'] + flags
                 + (['-p'] if system == 'PAL' else []))
             outs.append((open(out + '.tbc', 'rb').read(),
@@ -4008,6 +4017,58 @@ def segment_graphs_phase(torch, np, systems, woven, d: str):
     return res, k1
 
 
+# phase 28: the repo's bench through the port (bench_torch.py --quick), in
+# its own process, so every count there starts at 0
+BENCH_DECODE = ('ntsc', 'ntsc_noisy', 'pal')
+BENCH_FLOW = ('full_chain', 'full_chain_rgb8')
+BENCH_NO_K2 = ('full_chain_noflow', 'pal_chain', 'pal_chain_rgb8')
+
+
+def bench_phase(torch) -> dict:
+    """bench_torch.py --quick: every stage's rate above 0, its checks held
+    (frames checked, RGB frames back but those the comb holds), K1 launched
+    in every stage, K2 in the flow chains only.  Returns each stage's
+    launches."""
+    phase('28 bench')
+    dt, out = _run_cli('bench_torch.py', ['--quick'])
+    try:
+        line = json.loads(out.strip().splitlines()[-1])
+    except (IndexError, ValueError) as e:
+        fail(f'bench_torch.py printed no JSON line: {e}')
+    extra = line['extra']
+    stages = extra['stages']
+    if line['value'] <= 0 or not extra['device']['power_limit'] \
+            or extra['device']['count'] != torch.cuda.device_count():
+        fail(f'bench_torch.py: headline {line["value"]}, device '
+             f'{extra["device"]}')
+    rates = {'ntsc': line['value']}
+    for key in BENCH_DECODE[1:] + BENCH_FLOW + BENCH_NO_K2:
+        rates[key] = extra.get(f'{key}_MSa_s', 0)
+        if not rates[key] > 0:
+            fail(f'bench_torch.py: {key} rate {rates[key]}')
+    launches = {}
+    for key, st in stages.items():
+        k = st['kernel_launches']
+        launches[key] = k
+        if st['frames_checked'] <= 0 or k['K1'] <= 0:
+            fail(f'bench_torch.py {key}: {st["frames_checked"]} frames '
+                 f'checked, K1 launched {k["K1"]} times')
+        if (k['K2'] > 0) != (key in BENCH_FLOW):
+            fail(f'bench_torch.py {key}: K2 launched {k["K2"]} times')
+        if key not in BENCH_DECODE and (
+                st['rgb_frames'] <= 0
+                or st['frames_fed'] - st['rgb_frames'] != st['comb_held']):
+            fail(f'bench_torch.py {key}: {st["frames_fed"]} frames fed, '
+                 f'{st["rgb_frames"]} back, {st["comb_held"]} held')
+    print(f'bench_torch.py --quick: {dt:.1f} s, encode '
+          f'{extra["encode_mode"]} {extra["encode_s"]}; '
+          f'{"; ".join(extra["reduced"])}')
+    print('bench stages (MSa/s, warmup_s)', json.dumps(
+        {k: [rates[k], stages[k]['warmup_s']] for k in rates}))
+    print('bench launches', json.dumps(launches))
+    return launches
+
+
 def main():
     if sys.argv[1:2] == ['--mesh-rank']:
         return mesh_rank(sys.argv[2:])
@@ -4089,6 +4150,7 @@ def run(torch, np, work: str):
         torch, np, systems, {'NTSC': woven, 'PAL': pal_woven},
         _subdir(work, 'seg'))
     print('segments and combs, graphs vs eager', json.dumps(seg_graphs))
+    bench = bench_phase(torch)
     if 'jax' in sys.modules:
         fail('jax was imported')
 
@@ -4125,7 +4187,10 @@ def run(torch, np, work: str):
                 'pal segmented file graphs': seg_k1['PAL'],
                 'sharded decode': {f'{s.lower()} {w} rank{"s" * (w > 1)}': n
                                    for s, by in sharded.items()
-                                   for w, n in by.items()}}
+                                   for w, n in by.items()},
+                'bench': {k: v['K1'] for k, v in bench.items()},
+                'bench burst window': {k: v['K1_window']
+                                       for k, v in bench.items()}}
     k1_common = dict(route='cuda',
                      source='ld_decode_tpu_torch/csrc/resample_lines.cu',
                      replaces='ld_decode_tpu/tbc/pallas_resample.py:205',
@@ -4192,7 +4257,8 @@ def run(torch, np, work: str):
                  'ntsc stream comb': k2_stream, 'ldexport': two['k2'],
                  'ntsc chain': k2,
                  'ntsc stream comb graphs':
-                     seq_launches['NTSC streaming comb dim 3 flow']},
+                     seq_launches['NTSC streaming comb dim 3 flow'],
+                 'bench': {k: v['K2'] for k, v in bench.items()}},
              ms_method=MS_METHOD, **kres['K2']['warp 2 fields x 252x840']),
         dict(name='envelope_lanes', route='cuda',
              source='ld_decode_tpu_torch/csrc/cx_envelope.cu',

@@ -308,6 +308,13 @@ class NTSCCombBatch(_RgbCodecMixin):
                 lambda w, lv: _comb_window_ring(w, lv, cfg), (dev, levels))
         return self._fetch(rgb, words)
 
+    @property
+    def held(self) -> int:
+        """Frames fed that no window has emitted: the pending tail, and
+        with flow the stream's frame 0, which is never emitted."""
+        pend = 0 if self._pend is None else self._pend.shape[0]
+        return pend + int(self._started)
+
     def _fetch(self, rgb: torch.Tensor, words: torch.Tensor):
         """The window's handle: on the card its copies to pinned host
         buffers start at once, and collect waits on the event."""
@@ -393,6 +400,14 @@ class PALCombBatch(_RgbCodecMixin):
         if head is not None:
             rgb = torch.cat([head, rgb])
         return self._fetch(rgb)
+
+    @property
+    def held(self) -> int:
+        """Frames fed that no window has emitted: the pending tail but its
+        first frame, which came out as frame 0's 2D head or in the middle
+        of the last window (the others come out at `flush` or with the
+        next window)."""
+        return 0 if self._pend is None else self._pend.shape[0] - 1
 
     def _fetch(self, rgb: torch.Tensor):
         return self._send(rgb, {})

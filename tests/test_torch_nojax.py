@@ -17,6 +17,7 @@ PORT_FILES = [os.path.join(d, f)
     + [os.path.join(ROOT, f) for f in ('lddecode_torch.py',
                                        'ldchain_torch.py', 'ldexport_torch.py',
                                        'ldview_torch.py', 'chip_smoke.py',
+                                       'bench_torch.py',
                                        os.path.join('docs',
                                                     'devbook_torch.py'))] \
     + [os.path.join(ROOT, 'scripts', f)
@@ -59,6 +60,7 @@ def test_port_sources_import_no_jax():
             'ld_decode_tpu_torch/comb/comb_pal_legacy.py',
             'ld_decode_tpu_torch/utils/graphs.py',
             'docs/devbook_torch.py', 'scripts/drive_verify_torch.py',
+            'bench_torch.py',
             'scripts/profile_torch.py'} <= names
     for path in PORT_FILES:
         with open(path) as f:
@@ -76,6 +78,7 @@ import lddecode_torch
 import ldchain_torch
 import ldexport_torch
 import ldview_torch
+import bench_torch
 from ld_decode_tpu_torch.audio import circ, cuda_cx, cx, downscale, efm, subcode
 from ld_decode_tpu_torch.comb import batch, comb_ntsc, comb_pal, optflow
 from ld_decode_tpu_torch.io import export_sink
@@ -213,6 +216,9 @@ assert callable(fused.field_analyze_batch) and callable(
 import runpy
 verify = runpy.run_path('scripts/drive_verify_torch.py')
 assert verify['main'](['--device', 'cpu']) == 0
+assert bench_torch.median([3.0, 1.0, 2.0, 4.0]) == 2.5
+assert bench_torch.quick_frames(bench_torch.make_stages(
+    bench_torch.Jobs({}), 'cpu')) == {'clean': 124, 'noisy': 92, 'pal': 120}
 assert not [m for m, mod in sys.modules.items() if mod is not None
             and (m in ('jax', 'ld_decode_tpu')
                  or m.startswith(('jax.', 'ld_decode_tpu.')))]
