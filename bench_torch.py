@@ -43,7 +43,11 @@ The captures are encoded on the host (models/encode.py, seed 0) in spawn
 subprocesses, all at once when the host's memory allows it, and cached
 under build/bench/, keyed by a hash of the encoder and the spec.
 LD_TPU_PROFILE_DIR=<dir> writes a torch.profiler Chrome trace of the
-first visit there.
+first visit there, or of the first visit of the stage that
+LD_TPU_PROFILE_STAGE=<key> names, and adds extra['profile']: the device's
+operations and busy time in that visit and, for each timed pass, the
+host's wall time beside the device's busy time inside it and the field
+batches it dispatched.
 
 Prints one JSON line, the last line of its output:
   {"metric": "ntsc_demod_tbc_throughput", "value": ..., "unit": "MSa/s",
@@ -58,7 +62,6 @@ import os
 import subprocess
 import sys
 import time
-from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List
 
@@ -249,28 +252,35 @@ def warmup_framer(fr, start, on_frame=None):
 
 
 def sustained_passes(fr, sample, reps, npasses, samples_per_frame, tag,
-                     per_frame=None):
+                     per_frame=None, pass_batches=None):
     """Continuous decode, `npasses` timed windows of `reps` frames each;
     returns the per-pass MSa/s list.  Each pass ends in a synchronisation
     of the device, so the work it queued is counted, and the work queued
     before the first pass (the burn-in's) finishes untimed, so that every
     pass starts as the one before it ended.  A pass that reaches the end
     of the capture raises: the caller sizes the capture so that warmup +
-    npasses*reps fits."""
+    npasses*reps fits.  `pass_batches`, a list, gets the field batches
+    the prefetcher dispatched in each pass.  Each pass is a profiler range
+    named '<tag> pass <p>' (trace_summary reads it)."""
     rates = []
     _synchronize(fr.device)
     for p in range(npasses):
+        nb = fr.prefetcher.stats['batches'] if pass_batches is not None \
+            else 0
         t0 = time.time()
-        for i in range(reps):
-            rv = fr.readframe(None, sample, False)
-            if rv[0] is None:
-                raise BenchCheckError(f'{tag} pass {p}: end of capture '
-                                      f'after {i} of {reps} frames')
-            if per_frame is not None:
-                per_frame(rv)
-            sample = rv[2]
-        _synchronize(fr.device)
+        with torch.profiler.record_function(f'{tag} pass {p}'):
+            for i in range(reps):
+                rv = fr.readframe(None, sample, False)
+                if rv[0] is None:
+                    raise BenchCheckError(f'{tag} pass {p}: end of capture '
+                                          f'after {i} of {reps} frames')
+                if per_frame is not None:
+                    per_frame(rv)
+                sample = rv[2]
+            _synchronize(fr.device)
         dt = time.time() - t0
+        if pass_batches is not None:
+            pass_batches.append(fr.prefetcher.stats['batches'] - nb)
         rates.append(reps * samples_per_frame / dt / 1e6)
         print(f'# {tag} pass {p}: {reps} frames in {dt:.2f}s '
               f'-> {rates[-1]:.2f} MSa/s', file=sys.stderr)
@@ -284,6 +294,51 @@ def median(rates):
     if n % 2:
         return s[n // 2]
     return 0.5 * (s[n // 2 - 1] + s[n // 2])
+
+
+def _busy_us(intervals, lo=None, hi=None) -> float:
+    """Microseconds of the union of (start, end) intervals, within [lo, hi]
+    where given (a kernel and a copy that overlap count once)."""
+    busy, end = 0.0, None
+    for a, b in sorted(intervals):
+        if lo is not None:
+            a, b = max(a, lo), min(b, hi)
+        if b <= a:
+            continue
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy
+
+
+def trace_summary(prof, tag) -> dict:
+    """The device's side of a traced visit: its operations (kernels and
+    copies) and busy time, and for each timed pass (the '<tag> pass <p>'
+    ranges of sustained_passes) the host's wall time, the device's busy
+    time inside it and their ratio."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    ranges = f'{tag} pass '
+    # a pass's range also shows on the device's timeline, as an annotation
+    # that spans its kernels: it is no device work
+    dev = [(e.time_range.start, e.time_range.end) for e in events
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, 'is_user_annotation', False)
+           and not e.name.startswith(ranges)]
+    passes = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == DeviceType.CPU
+                    and e.name.startswith(ranges))
+    out = {'device_ops': len(dev), 'device_busy_ms': _busy_us(dev) / 1e3,
+           'passes': []}
+    for lo, hi in passes:
+        busy = _busy_us(dev, lo, hi)
+        out['passes'].append({'wall_ms': (hi - lo) / 1e3,
+                              'device_busy_ms': busy / 1e3,
+                              'busy_share': busy / max(hi - lo, 1e-9)})
+    return out
 
 
 def _launch_counts() -> Dict[str, int]:
@@ -312,6 +367,7 @@ class _Stage:
         self.tag, self.key = tag, key
         self.device = torch.device(device)
         self.rates: List[float] = []
+        self.pass_batches: List[int] = []
         self.fr = None
         self.warmup_s = None
         self.frames_checked = 0
@@ -361,9 +417,7 @@ class _Stage:
         t0 = time.time()
         for _ in range(nburn):
             rv = self.fr.readframe(None, s, False)
-            if rv[0] is None:
-                break
-            per_frame(rv)
+            per_frame(rv)          # raises where no frame came back
             s = rv[2]
         print(f'# {self.tag} burn-in: {nburn} frames in '
               f'{time.time() - t0:.1f}s', file=sys.stderr)
@@ -383,7 +437,8 @@ class _Stage:
     def report(self) -> dict:
         g = self.fr.graphs if self.fr is not None else None
         return {'median_MSa_s': median(self.rates) if self.rates else None,
-                'pass_rates': self.rates, 'warmup_s': self.warmup_s,
+                'pass_rates': self.rates, 'pass_batches': self.pass_batches,
+                'warmup_s': self.warmup_s,
                 'graphs': dict(g.counts, capture_s=sum(
                     g.capture_seconds.values())) if g is not None else None,
                 'peak_mem_mib': self.peak_mem_mib,
@@ -426,7 +481,7 @@ class _DecodeStage(_Stage):
             s = self._burn_in(s, self._check_frame)
             self.rates.extend(sustained_passes(
                 self.fr, s, self.reps, npasses, self.spf, self.tag,
-                per_frame=self._check_frame))
+                per_frame=self._check_frame, pass_batches=self.pass_batches))
             print(f'# {self.tag} prefetcher stats: '
                   f'{self.fr.prefetcher.stats}', file=sys.stderr)
             self.fr.prefetcher.flush()
@@ -460,7 +515,8 @@ class _ChainStage(_Stage):
         if self.fr is not None:
             return
         from ld_decode_tpu_torch.audio.cx import CXExpander
-        from ld_decode_tpu_torch.comb.batch import NTSCCombBatch, PALCombBatch
+        from ld_decode_tpu_torch.comb.batch import (CombWindows, NTSCCombBatch,
+                                                    PALCombBatch)
         from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig
         from ld_decode_tpu_torch.comb.comb_pal import CombPALConfig
         from ld_decode_tpu_torch.ops import filters as F
@@ -492,41 +548,24 @@ class _ChainStage(_Stage):
                               3)
         self.rgb_dtype = np.uint8 if self.out8 else np.uint16
         self.cx = CXExpander(device=self.device)
-        self.sink = {'rgb': 0, 'pcm': 0, 'fed': 0, 'out': 0, 'buf': [],
-                     'pending': deque()}
+        self.sink = {'rgb': 0, 'pcm': 0, 'fed': 0, 'out': 0}
+        # the user's window loop (ldchain_torch.py), its stream running on
+        # across visits
+        self.windows = CombWindows(self.comb, self.CB, self.DEPTH, self._emit)
 
-    def _harvest(self, h):
-        rgbs, _ = self.comb.collect(h)
-        for rgb in rgbs:
-            if rgb.shape != self.rgb_shape or rgb.dtype != self.rgb_dtype:
-                raise BenchCheckError(
-                    f'{self.tag}: RGB frame {rgb.shape} {rgb.dtype}, want '
-                    f'{self.rgb_shape} {np.dtype(self.rgb_dtype)}')
-            self.sink['rgb'] += rgb.nbytes
-            self.sink['out'] += 1
-
-    def _flush(self, drain=False):
-        b = self.sink['buf']
-        if b:
-            frames = torch.stack([
-                x.to(self.device) if isinstance(x, torch.Tensor)
-                else torch.from_numpy(np.asarray(x).astype(np.int32)).to(
-                    self.device) for x in b])
-            h = self.comb.feed(frames)
-            if h is not None:
-                self.sink['pending'].append(h)
-            self.sink['fed'] += len(b)
-            self.sink['buf'] = []
-        limit = 0 if drain else self.DEPTH
-        while len(self.sink['pending']) > limit:
-            self._harvest(self.sink['pending'].popleft())
+    def _emit(self, rgb, words):
+        if rgb.shape != self.rgb_shape or rgb.dtype != self.rgb_dtype:
+            raise BenchCheckError(
+                f'{self.tag}: RGB frame {rgb.shape} {rgb.dtype}, want '
+                f'{self.rgb_shape} {np.dtype(self.rgb_dtype)}')
+        self.sink['rgb'] += rgb.nbytes
+        self.sink['out'] += 1
 
     def _chain(self, rv):
         self._check_frame(rv)
         # a device frame (or the host-woven first frame) as (lines, width)
-        self.sink['buf'].append(rv[0].reshape(*self.fshape))
-        if len(self.sink['buf']) == self.CB:
-            self._flush()
+        self.windows.push(rv[0].reshape(*self.fshape))
+        self.sink['fed'] += 1
         if rv[1] is not None:
             self.sink['pcm'] += self.cx.process(
                 np.asarray(rv[1]).ravel()).nbytes
@@ -549,8 +588,10 @@ class _ChainStage(_Stage):
             s = self._burn_in(s, self._chain)
             self.rates.extend(sustained_passes(
                 self.fr, s, self.reps, npasses, self.spf, self.tag,
-                per_frame=self._chain))
-            self._flush(drain=True)
+                per_frame=self._chain, pass_batches=self.pass_batches))
+            # the windows in flight come back; the comb keeps its tail
+            # for the next visit
+            self.windows.drain(flush=False)
             self._check_drained()
             nf = self.sink['out']
             print(f'# {self.tag} output so far: {self.sink["rgb"] / 1e6:.1f} '
@@ -662,6 +703,21 @@ def build_kernels(device):
             f.result()
 
 
+def profile_target(schedule, stages):
+    """(directory, stage key) of the visit to trace: LD_TPU_PROFILE_DIR
+    names the directory, LD_TPU_PROFILE_STAGE the stage whose first visit
+    is traced (default: the schedule's first); (None, None) without a
+    directory."""
+    profile_dir = os.environ.get('LD_TPU_PROFILE_DIR')
+    if not profile_dir:
+        return None, None
+    key = os.environ.get('LD_TPU_PROFILE_STAGE') or schedule[0][0]
+    if key not in stages:
+        raise ValueError(f'LD_TPU_PROFILE_STAGE={key!r}: not one of '
+                         f'{", ".join(stages)}')
+    return profile_dir, key
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description='End-to-end decode benchmark of the PyTorch port')
@@ -698,11 +754,11 @@ def main(argv=None):
     start_pre_encodes(jobs)
     try:
         build_kernels(device)
-        profile_dir = os.environ.get('LD_TPU_PROFILE_DIR')
-        for i, (key, n) in enumerate(schedule):
+        profile_dir, profile_key = profile_target(schedule, stages)
+        for key, n in schedule:
             stage = stages[key]
             prof = contextlib.nullcontext()
-            if profile_dir and i == 0:
+            if key == profile_key and 'profile' not in extra:
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == 'cuda':
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -713,6 +769,13 @@ def main(argv=None):
                 os.makedirs(profile_dir, exist_ok=True)
                 p.export_chrome_trace(os.path.join(
                     profile_dir, f'bench_torch_{key}_visit0.json'))
+                summary = trace_summary(p, stage.tag)
+                for q, nb in zip(summary['passes'], stage.pass_batches[-n:]):
+                    q.update(batches=nb, device_ms_a_batch=(
+                        q['device_busy_ms'] / nb if nb else None))
+                extra['profile'] = dict(stage=key,
+                                        pass_rates=stage.rates[-n:],
+                                        **summary)
     finally:
         stop_encodes(jobs)
 

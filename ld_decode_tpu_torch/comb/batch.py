@@ -42,7 +42,8 @@ PERF.md).  The encode (JAX's jitted `_rgb_encode`) replays as one CUDA
 graph a window shape and output depth through the comb's cache, as does
 the raw path's cut to 8 bits (`_to_rgb8`).
 `CombWindows` is the chain's loop over windows, shared by
-ldchain_torch.py, chip_smoke.py and scripts/profile_torch.py.
+ldchain_torch.py, bench_torch.py, chip_smoke.py and
+scripts/profile_torch.py.
 """
 
 from __future__ import annotations
@@ -452,12 +453,16 @@ class CombWindows:
         if len(self._buf) >= self.window:
             self._flush(self.depth)
 
-    def drain(self):
+    def drain(self, flush: bool = True):
         """Comb what is buffered, emit every window still in flight, then
-        the comb's flush tail where it has one."""
+        the comb's flush tail where it has one.  flush=False leaves the
+        tail in the comb (its `held` frames), so that later pushes go on
+        with the same stream."""
         self._flush(0)
-        flush = getattr(self.comb, 'flush', None)
-        tail = flush() if flush is not None else None
+        if not flush:
+            return
+        comb_flush = getattr(self.comb, 'flush', None)
+        tail = comb_flush() if comb_flush is not None else None
         if tail is not None:
             self.emit(tail, None)
 

@@ -183,6 +183,103 @@ def test_missing_frame_fails():
         TB.sustained_passes(fr, 0, 4, 1, 1e6, 'ntsc')
 
 
+def test_burn_in_missing_frame_fails():
+    """A read of the burn-in that returns no frame fails the visit, as
+    one of a timed pass does."""
+    st = _stage_with_vbi()
+    st.batch = 2
+    st.fr = types.SimpleNamespace(
+        vbi={'framenr': None}, readframe=lambda *a: (None,) * 4,
+        prefetcher=types.SimpleNamespace(DEPTH=3))
+    with pytest.raises(TB.BenchCheckError, match='no frame'):
+        st._burn_in(0, st._check_frame)
+
+
+@pytest.mark.parametrize('intervals,window,busy', [
+    ([(0, 4), (2, 6), (8, 9)], None, 7),
+    ([(0, 4), (1, 2), (5, 7)], None, 6),
+    ([(0, 4), (2, 6), (8, 9)], (3, 8.5), 3.5),
+    ([], None, 0)], ids=['overlap', 'nested', 'window', 'none'])
+def test_busy_union(intervals, window, busy):
+    assert TB._busy_us(intervals, *(window or ())) == busy
+
+
+def test_trace_summary_counts_device_work():
+    """The device's busy time in a pass is its kernels' and copies'
+    union inside the pass's range; the range's own annotation on the
+    device's timeline is no work."""
+    from torch.autograd import DeviceType
+
+    def ev(name, a, b, dev, annotation=False):
+        return types.SimpleNamespace(
+            name=name, time_range=types.SimpleNamespace(start=a, end=b),
+            device_type=dev, is_user_annotation=annotation)
+
+    cuda, cpu = DeviceType.CUDA, DeviceType.CPU
+    prof = types.SimpleNamespace(events=lambda: [
+        ev('pal pass 0', 10, 50, cpu), ev('pal pass 0', 12, 49, cuda, True),
+        ev('pal pass 1', 60, 100, cpu), ev('pal pass 1', 61, 99, cuda),
+        ev('kern', 5, 15, cuda), ev('kern', 20, 30, cuda),
+        ev('Memcpy DtoH', 25, 35, cuda), ev('kern', 70, 80, cuda),
+        ev('aten::add', 20, 21, cpu)])
+    got = TB.trace_summary(prof, 'pal')
+    assert got['device_ops'] == 4 and got['device_busy_ms'] == 0.035
+    assert [p['device_busy_ms'] for p in got['passes']] == [0.02, 0.01]
+    assert [p['wall_ms'] for p in got['passes']] == [0.04, 0.04]
+    assert [p['busy_share'] for p in got['passes']] == [0.5, 0.25]
+
+
+def _traced_stub(tag, key, fail=False):
+    """A stage whose visit times passes over a framer that reads frames
+    without decoding (one field batch dispatched a frame)."""
+    st = _Stub(tag, key, fail)
+    stats = {'batches': 0, 'pic_mode': 'raw'}
+
+    def readframe(*a):
+        stats['batches'] += 1
+        st.fr.vbi['framenr'] += 1
+        return np.zeros(4), None, 0, None
+
+    def visit(npasses):
+        st._last_framenr = None
+        st.fr = types.SimpleNamespace(
+            graphs=GraphCache('cpu'), device=torch.device('cpu'),
+            vbi={'framenr': 900}, readframe=readframe,
+            prefetcher=types.SimpleNamespace(stats=stats))
+        st.warmup_s = 0.5
+        st.rates.extend(TB.sustained_passes(
+            st.fr, 0, 3, npasses, 1e6, tag, per_frame=st._check_frame,
+            pass_batches=st.pass_batches))
+
+    st.visit = visit
+    return st
+
+
+def test_profile_names_a_stage(monkeypatch, capsys, tmp_path):
+    """LD_TPU_PROFILE_STAGE picks the stage whose first visit is traced;
+    the line gains the trace's summary, one entry a timed pass; a name
+    that is not a stage fails the run."""
+    keys = list(TB.make_stages(TB.Jobs({}), 'cpu'))
+    monkeypatch.setattr(TB, 'make_stages', lambda jobs, device: {
+        k: _traced_stub(k, 'pal' if 'pal' in k else 'clean') for k in keys})
+    monkeypatch.setattr(TB, 'start_pre_encodes', lambda jobs: jobs)
+    monkeypatch.setenv('LD_TPU_PROFILE_DIR', str(tmp_path))
+    monkeypatch.setenv('LD_TPU_PROFILE_STAGE', 'pal')
+    assert TB.main(['--device', 'cpu']) == 0
+    extra = json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        'extra']
+    prof = extra['profile']
+    assert prof['stage'] == 'pal' and len(prof['pass_rates']) == 2
+    assert prof['device_ops'] == 0 and len(prof['passes']) == 2
+    assert all(p['wall_ms'] > 0 and p['device_busy_ms'] == 0
+               and p['batches'] == 3 for p in prof['passes'])
+    assert os.listdir(tmp_path) == ['bench_torch_pal_visit0.json']
+    assert extra['stages']['pal']['pass_batches'] == [3] * 4
+    monkeypatch.setenv('LD_TPU_PROFILE_STAGE', 'palx')
+    with pytest.raises(ValueError, match='not one of'):
+        TB.main(['--device', 'cpu', '--quick'])
+
+
 def test_captures_encode_in_subprocesses(tmp_path):
     """A spawn process encodes the capture into the cache, equal to the
     encoder's own output; the name follows the frame count."""

@@ -464,3 +464,24 @@ def test_comb_windows_emits_the_flush_tail(frames):
     assert len(got) == 5 and all(w is None for _, w in got)
     for (a, _), b in zip(got, want + [wtail]):
         assert np.abs(a.astype(np.int64) - b.astype(np.int64)).max() <= 1
+
+
+def test_comb_windows_drain_keeps_the_tail(frames):
+    """drain(flush=False) emits every window in flight and leaves the
+    comb's tail in it: later pushes go on with the same stream, as the
+    bench's chain stages do across visits."""
+    cfg = TP.CombPALConfig(dim=3)
+    want, wtail = _stream(TP.PALComb(cfg, device='cpu'), frames)
+    got = []
+    comb = TB.PALCombBatch(cfg, device='cpu')
+    win = TB.CombWindows(comb, 2, 1, lambda rgb, words: got.append(rgb))
+    for f in frames[:3]:
+        win.push(torch.from_numpy(f.astype(np.int32)))
+    win.drain(flush=False)
+    assert len(got) == 2 and comb.held == 1
+    for f in frames[3:]:
+        win.push(torch.from_numpy(f.astype(np.int32)))
+    win.drain()
+    assert len(got) == len(frames)
+    for a, b in zip(got, want + [wtail]):
+        assert np.abs(a.astype(np.int64) - b.astype(np.int64)).max() <= 1
