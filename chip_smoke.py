@@ -27,19 +27,27 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      launches counted, every K2 launch on its row-gather path;
   8. one comb window of 4 device frames (a smooth texture added, so the
      flow is well posed) combed on the card and on the CPU;
-  9. the chain CLI (ldchain_torch.py) on the 10-frame capture;
+  9. the chain CLI (ldchain_torch.py -l 6) on the 10-frame capture: 6
+     RGB frames, and the audio of exactly the first 6 decoded frames (a
+     Framer as the CLI's counts each frame's samples);
  10. PAL decode path: a 40-frame `palbars` capture through the Framer
      (batch 16, nblocks 56) from sample 2560*14 -- >= 24 frames with
      consecutive CAV numbers, K1 launched once a batch (the picture call at
      (16, 313, 1135); PAL has no burst passes);
  11. one PAL field batch on the card vs on the CPU, then under sync-debug
-     "error" mode;
+     "error" mode; every line of every field within 0.02 px, or a wrap
+     flip of the pilot pass (tbc/pal.py::wrap_flip_lines, from each
+     device's pilot-pass input run again, only where a line is past 0.02
+     px: that input, the hsync stage, within 0.02 px card vs CPU) whose
+     difference is its prediction to 1e-4 px; the picture rows reading a
+     flipped line counted apart (lines, rows, max LSB);
  12. PAL chain path: 32 frames through Framer(fetch_picture=False) and
      the dim-3 PAL comb in CombWindows (8, 3 in flight) -- every decoded
      frame emitted once, in order (each frame is stamped with its index),
      the flush tail included; K1 counted, K2 not launched;
  13. one PAL comb window of 4 device frames on the card vs on the CPU;
- 14. both CLIs with -p on a 10-frame PAL .lds capture;
+ 14. both CLIs with -p on a 10-frame PAL .lds capture (the chain CLI's
+     audio as in phase 9);
  15. sequential decode path: the NTSC capture of phase 4 as an .lds through
      Framer(loader=..., batch=1) (nblocks 66), 4 frames on the card, 2 of
      them again on the CPU, card vs CPU to the decode budgets, K1 launched
@@ -47,7 +55,11 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      full_decode=False (the JAX package's fourth positional parameter):
      the fields located with the full decode's hsync-stage line locations
      and its VBI, no frame, picture or audio, no K1 launch; then PAL on the
-     `palbars` capture (nblocks 56), 1 launch a field;
+     `palbars` capture (nblocks 56), 1 launch a field; every line of a
+     field, the last 10 included, within 0.02 px card vs CPU or a wrap
+     flip accounted as in phase 11 (the pilot pass's input kept from each
+     decode's hsync stage), the tail rows but those reading a flip within
+     4 LSB (NTSC) or PAL_TAIL_MAX (PAL);
  16. streaming comb: NTSCComb(dim=3, flow) over 6 textured frames on the
      card, K2 9 times an emitted frame, all on the row path; one frame
      card vs CPU (phase 8's budgets); the streaming against the batched
@@ -80,7 +92,8 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      seconds), and the pairs of 128 frames both ways; the device time of
      a forward;
  20. the VHS tape decode (cuFFT): a flat-50 tape capture at 8 fsc through
-     decode_vhs in 4 windows of nblocks 66, card vs CPU (luma 1 LSB, demod
+     decode_vhs (eager: phase 29 holds its graphs) in 4 windows of nblocks
+     66, card vs CPU (luma 1 LSB, demod
      1e-6 of its scale), the levels and audio carriers, the rate in
      MSa/s; recover_color_under on 2^22 samples (correlation with the
      truth, card vs CPU); the host copies fdls, filtertools, filtermaker
@@ -126,8 +139,9 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      4 frames a comb with the encode graphed (the default) and eager,
      frames and words bit-equal, the encode's host and device ms a window
      both ways;
- 24. the legacy PAL comb (comb/comb_pal_legacy.py): two seeded synthetic
-     1052x610 frames at dims 1, 2 and 3 on the card vs the CPU (max 2,
+ 24. the legacy PAL comb (comb/comb_pal_legacy.py, eager: phase 29 holds
+     its graphs): two seeded synthetic 1052x610 frames at dims 1, 2 and 3
+     on the card vs the CPU (max 2,
      p99.9 1 LSB: the CPU test's budget against JAX), the dim-3 primer
      frame black; device time a frame;
  25. the compile boundary (utils/graphs.py), graphs vs eager in one call:
@@ -158,8 +172,9 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      (whole runs and after the first frame), RGB frames/s, device
      operations and launch calls a field and a frame, host ms a call,
      capture seconds a key and peak device memory both ways;
-     field_finish_batch on a 16-field NTSC and PAL batch on the card
-     against the CPU (phase 5's budgets), its ms a batch and K1 launches;
+     field_finish_batch (eager) on a 16-field NTSC and PAL batch on the
+     card against the CPU (phase 5's budgets), its ms a batch and K1
+     launches;
  27. the file decode across segment swaps and the last comb paths, eager
      then graphed in one call: phase 4's and phase 10's captures tiled 5
      times into one .lds each and decoded segmented (batch 16, the
@@ -180,6 +195,15 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      but those the comb holds), K1 launched in every stage, K2 in the two
      flow chains and in no other stage; the rates, warm-up seconds and
      launches printed.
+ 29. the last compile-boundary keys, eager then graphed (the default) in
+     one call: the chain's device weave with its line-0 words over 12
+     chain-mode frames of each system (straddling pairs counted, every
+     frame kept), field_analyze_batch / field_finish_batch on 4 16-field
+     batches a system, decode_vhs over 6 windows of nblocks 66, and the
+     legacy PAL comb at dims 2 and 3 over 4 frames: each bit-equal both
+     ways, K1's launches equal, the warm-ups, captures, replays and
+     capture seconds, host ms a call (the weave's a frame) both ways, and
+     decode_vhs's MSa/s against real time (28.64).
 Every decode and chain phase runs with the default graphs on.
 The line before the last is the kernel JSON; the last line is the result.
 """
@@ -720,10 +744,30 @@ def parity_phase(torch, np, cfg, bank, fr, title='5 card vs cpu, one batch',
     if not g['meta_i'][:, 0].all():
         fail(f'batch fields not valid: {g["meta_i"][:, 0]}')
     ll = lambda o: o['linelocs_i'].astype(np.float64) + o['linelocs_f']
-    dll = float(np.abs(ll(g) - ll(c)).max())
-    cut = cfg.sys.frame_lines // 2 - tail_rows
+    dloc = ll(c) - ll(g)
     dpic = np.abs(g['picture'].astype(np.int64)
                   - c['picture'].astype(np.int64))
+    # PAL: every line of every field within 0.02 px, or a wrap flip its
+    # prediction accounts for (F3); the picture rows reading a flipped
+    # line (rows line - 4 and line - 3 of the field) apart
+    nflip, flip_rows, flip_lsb = 0, 0, 0
+    if cfg.system == 'PAL' and np.abs(dloc).max() > 0.02:
+        pred = _batch_wrap_flips(torch, np, cfg, {'cuda': (cap_gpu, bank),
+                                                  'cpu': (cap_cpu, bank_cpu)},
+                                 rs0, nblk, batch, pitch)
+        for b in range(batch):
+            flips = _flipped_lines(np, dloc[b], *pred[b],
+                                   f'{cfg.system} batch field {b}')
+            dloc[b, flips] = 0.0
+            rows = sorted({j for l in flips for j in (l - 4, l - 3)
+                           if 0 <= j < dpic.shape[1]})
+            nflip += len(flips)
+            flip_rows += len(rows)
+            if rows:
+                flip_lsb = max(flip_lsb, int(dpic[b, rows].max()))
+                dpic[b, rows] = 0
+    dll = float(np.abs(dloc).max())
+    cut = cfg.sys.frame_lines // 2 - tail_rows
     dtail = dpic[:, cut:cfg.sys.frame_lines // 2]
     dpic = dpic[:, 24:cut] if tail_rows else dpic[:, 24:]
     p999, pmax = float(np.percentile(dpic, 99.9)), int(dpic.max())
@@ -735,6 +779,9 @@ def parity_phase(torch, np, cfg, bank, fr, title='5 card vs cpu, one batch',
     print(f'linelocs max|d| {dll:.2e} px; picture rows>=24 p99.9 {p999} '
           f'max {pmax} LSB; audio rms {max(arms):.3f} LSB; meta, audio '
           f'counts, Philips codes and chain scalars equal')
+    if cfg.system == 'PAL':
+        print(f'wrap flips: {nflip} lines, {flip_rows} picture rows reading '
+              f'them, max {flip_lsb} LSB (held apart from the budgets)')
     if dll > 0.02 or p999 > 2 or pmax > 4 or max(arms) > 0.6:
         fail('card vs cpu outside the budgets (0.02 px, 2/4 LSB, 0.6 LSB)')
     if tail_rows:
@@ -763,6 +810,45 @@ def parity_phase(torch, np, cfg, bank, fr, title='5 card vs cpu, one batch',
         fail('sync-debug run gave other meta words')
     print('sync-debug "error" run: no host synchronization inside '
           'field_pipeline_batch')
+
+
+def _batch_wrap_flips(torch, np, cfg, runs, rs0, nblk, batch, pitch):
+    """tbc/pal.py::wrap_flip_lines for each field of a PAL batch decoded on
+    the card and on the CPU (`runs`: device -> (capture, bank)), from each
+    decode's pilot-pass input: the batch call's analysis and hsync stage
+    run again from the same starts, whose line locations must agree card
+    vs CPU within 0.02 px (bad-line flags equal), as phase 15 holds its
+    hsync stage.  Returns [(lines, predicted, anchored, detail)] a
+    field."""
+    from ld_decode_tpu_torch.tbc import fused as FU
+    from ld_decode_tpu_torch.tbc import pal as PAL
+    got = []
+    for cap, bank in (runs['cuda'], runs['cpu']):
+        starts = FU.pipeline_starts(rs0, 0, batch, pitch, cap.shape[0], cfg,
+                                    nblk, device=cap.device)
+        video, _a, lld, lc, *_ = FU.pipeline_analyze(cap, starts, 1.0, bank,
+                                                     cfg, nblk)
+        lli, llf, bad = FU._hsync_refine(video, lld.lli, lld.llf, lld.bad,
+                                         lc, cfg)
+        frac, cross = PAL.pilot_offsets(video['demod'], video['demod_05'],
+                                        lli, llf, cfg.linelen, cfg.freq_mhz)
+        got.append((frac.cpu().numpy(), cross.cpu().numpy(),
+                    lli.cpu().numpy(), llf.cpu().numpy(),
+                    bad.cpu().numpy()))
+    (fa, ca, ia, la, ba), (fb, cb, ib, lb, bb) = got
+    dhs = float(np.abs((ib.astype(np.float64) + lb)
+                       - (ia.astype(np.float64) + la)).max())
+    print(f'{cfg.system} batch hsync stage, run again: max|d| {dhs:.2e} '
+          f'px card vs CPU')
+    if dhs > 0.02 or not np.array_equal(ba, bb):
+        fail(f'{cfg.system} batch hsync stage card vs CPU: max|d| {dhs} px '
+             f'(budget 0.02), bad-line flags '
+             f'{"equal" if np.array_equal(ba, bb) else "differ"}')
+    got = [g[:4] for g in got]
+    return [PAL.wrap_flip_lines(fa[b], ca[b], fb[b], cb[b], (ia[b], ib[b]),
+                                (la[b], lb[b]), cfg.freq_mhz)
+            + (_pilot_detail(np, [[x[b] for x in g] for g in got]),)
+            for b in range(batch)]
 
 
 def _write_capture(np, cap, cfg, d: str) -> str:
@@ -936,7 +1022,11 @@ def comb_parity_phase(torch, np, dev_frames):
         fail(f'flow card vs cpu: p99 {np.percentile(df, 99)} px')
 
 
-def chain_cli_phase(np, cap, cfg, title='9 chain cli'):
+def chain_cli_phase(torch, np, cap, cfg, title='9 chain cli'):
+    """ldchain_torch.py -l 6 on a 10-frame capture: 6 RGB frames, and the
+    audio of exactly the first 6 decoded frames (the chain decodes past
+    them for the comb's lookahead; ldchain_tpu.py writes the audio of all
+    it decoded: ROADMAP.md Queue 3, fixed in the port)."""
     phase(title)
     pal = cfg.system == 'PAL'
     flags = ['-p'] if pal else []
@@ -948,10 +1038,40 @@ def chain_cli_phase(np, cap, cfg, title='9 chain cli'):
                                               '-q'] + flags)
         rgb = os.path.getsize(out + '.rgb')
         pcm = os.path.getsize(out + '.audio.pcm')
+        counts = _chain_audio_counts(torch, np, cfg, path)
+        want_pcm = 2 * sum(counts[:6])
         print(f'ldchain_torch.py {" ".join(flags + ["-l", "6"])}: {dt:.1f} '
-              f's, .rgb {rgb} bytes, .audio.pcm {pcm} bytes')
-        if rgb != want or pcm <= 0:
-            fail(f'.rgb {rgb} bytes (want {want}), .audio.pcm {pcm}')
+              f's, .rgb {rgb} bytes, .audio.pcm {pcm} bytes: the first 6 '
+              f'of the {len(counts)} frames the capture decodes to hold '
+              f'{want_pcm} bytes of audio, all of them '
+              f'{2 * sum(counts)}')
+        if rgb != want or pcm != want_pcm or want_pcm <= 0:
+            fail(f'.rgb {rgb} bytes (want {want}), .audio.pcm {pcm} (want '
+                 f'{want_pcm})')
+
+
+def _chain_audio_counts(torch, np, cfg, path: str) -> list:
+    """The audio samples of each frame ldchain_torch.py decodes from
+    `path` (its Framer: a loader, batch 16, the default segment, chain
+    mode, from sample 0; eager, which phase 25 holds bit-equal to the
+    CLI's graphs), to the end of the capture."""
+    from ld_decode_tpu_torch.io import loaders as L
+    from ld_decode_tpu_torch.ops import filters as F
+    from ld_decode_tpu_torch.tbc import framer as FR
+    bank = F.make_demod_bank(cfg, np.complex64, device='cuda')
+    fr = FR.Framer(cfg, bank, L.loader_for_path(path), batch=16,
+                   segment_samples=512 * (1 << 20) // 2, device='cuda',
+                   fetch_picture=False, graphs=False)
+    counts, sample = [], 0
+    with open(path, 'rb') as fd:
+        while True:
+            frame, audio, sample, _ = fr.readframe(fd, sample, not counts)
+            if frame is None:
+                break
+            counts.append(0 if audio is None else int(np.asarray(audio).size))
+    del fr
+    torch.cuda.empty_cache()
+    return counts
 
 
 def pal_chain_phase(torch, np, cfg, cap, bank):
@@ -1112,8 +1232,11 @@ def seq_decode_phase(torch, np, cfg, cap, bank, d: str):
         process = fr.decoder.process
 
         def counted(*a, **k):
+            n0 = len(steps)
             r = process(*a, **k)
             valid[0] += int(r.valid)
+            if r.valid and len(steps) > n0:
+                pilot_in[id(r)] = steps[-1]
             return r
 
         fr.decoder.process = counted
@@ -1121,7 +1244,11 @@ def seq_decode_phase(torch, np, cfg, cap, bank, d: str):
 
         def kept(*a, **k):
             r = hsync(*a, **k)
-            steps.append((device, r[0].copy(), r[1].copy()))
+            # PAL: the pilot pass's input, its two demod taps cloned (a
+            # replay overwrites them) for the wrap-flip accounting
+            taps = {t: a[0][t].clone() for t in ('demod', 'demod_05')} \
+                if cfg.system == 'PAL' else None
+            steps.append((device, r[0].copy(), r[1].copy(), taps))
             return r
 
         fr.decoder.refine_linelocs_hsync = kept
@@ -1138,7 +1265,7 @@ def seq_decode_phase(torch, np, cfg, cap, bank, d: str):
     def refuse(*_a, **_k):
         fail('a line resample on the card reached the plain version')
 
-    steps = []
+    steps, pilot_in = [], {}
 
     plain = CR.resample_lines_batch_plain
     CR.resample_lines_batch_plain = refuse
@@ -1174,32 +1301,59 @@ def seq_decode_phase(torch, np, cfg, cap, bank, d: str):
     # the hsync stage of every field both decoded, in order
     hs = [[x for x in steps if x[0] == dev] for dev in ('cuda', 'cpu')]
     dhs = 0.0
-    for (_, gl, gb), (_, cl, cb) in zip(*hs):
+    for (_, gl, gb, _), (_, cl, cb, _) in zip(*hs):
         if len(gl) != len(cl) or not np.array_equal(gb, cb):
             fail('hsync stage: line counts or bad-line flags differ')
         dhs = max(dhs, float(np.abs(gl - cl).max()))
-    # the final locations: every line but the last 10 of a field (the
-    # tail, in the vertical interval: its picture rows are PAL_TAIL_ROWS)
+    # the final locations: every line of a field, the last 10 (the tail,
+    # in the vertical interval: its picture rows are PAL_TAIL_ROWS)
+    # included, within 0.02 px or a PAL wrap flip its prediction accounts
+    # for (F3); the picture rows that read a flipped line apart
     Y, W = cfg.sys.frame_lines, cfg.sys.outlinelen
     cut = 2 * (cfg.sys.frame_lines // 2 - PAL_TAIL_ROWS)
-    dll, dtail, moved, p999, pmax, tmax = 0.0, 0.0, [], 0.0, 0, 0
+    dll, dtail, p999, pmax, tmax = 0.0, 0.0, 0.0, 0, 0
+    nflip, flip_rows, flip_lsb = 0, 0, 0
     audio_g, audio_c = [], []
     for a, b in zip(gpu, cpu):
         if a[2] != b[2] or not np.array_equal(a[0][:16], b[0][:16]):
             fail('next sample or line-0 words differ, card vs CPU')
-        for fa, fb in zip(a[3], b[3]):
+        rows = set()
+        half = min(f.linecount for f in a[3])
+        lf = int(np.argmax([f.linecount for f in a[3]]))
+        for fi, (fa, fb) in enumerate(zip(a[3], b[3])):
             da = (fa.valid, fa.istop, fa.linecount, fa.nextfieldoffset,
                   fa.peak_count, fa.vsync_count, fa.linecode)
             db = (fb.valid, fb.istop, fb.linecount, fb.nextfieldoffset,
                   fb.peak_count, fb.vsync_count, fb.linecode)
             if da != db:
                 fail(f'field decisions differ, card vs CPU: {da} / {db}')
-            d = np.abs(fa.linelocs - fb.linelocs)
-            dll = max(dll, float(d[:-10].max()))
-            dtail = max(dtail, float(d[-10:].max()))
-            moved += [int(i) for i in np.nonzero(d > 0.02)[0]]
+            d = fb.linelocs - fa.linelocs
+            flips = []
+            if np.abs(d).max() > 0.02 and cfg.system == 'PAL':
+                flips = _flipped_lines(
+                    np, d, *_wrap_flips(torch, np, cfg, pilot_in[id(fa)],
+                                        pilot_in[id(fb)]),
+                    f'{cfg.system} sequential field {fi}')
+            rest = np.abs(d)
+            rest[flips] = 0.0
+            dll = max(dll, float(rest[:-10].max()))
+            dtail = max(dtail, float(rest[-10:].max()))
+            nflip += len(flips)
+            # frame rows whose field rows (line - lineoffset - 1 and line -
+            # lineoffset) read a flipped line
+            for l in flips:
+                for j in (l - 4, l - 3):
+                    if 0 <= j < half:
+                        rows.add(2 * j + fi)
+                    elif j == half and fi == lf:
+                        rows.add(2 * half)
         dp = np.abs(a[0].astype(np.int64) - b[0].astype(np.int64)).reshape(
             Y, W)
+        if rows:
+            rows = sorted(rows)
+            flip_rows += len(rows)
+            flip_lsb = max(flip_lsb, int(dp[rows].max()))
+            dp[rows] = 0
         p999 = max(p999, float(np.percentile(dp[24:cut], 99.9)))
         pmax = max(pmax, int(dp[24:cut].max()))
         tmax = max(tmax, int(dp[cut:].max()))
@@ -1211,19 +1365,80 @@ def seq_decode_phase(torch, np, cfg, cap, bank, d: str):
                 - np.concatenate(audio_c))
     picks = da > AUDIO_PICK_LSB
     arms = float(np.sqrt(np.mean(da[~picks] ** 2)))
+    tail_max = PAL_TAIL_MAX if cfg.system == 'PAL' else 4
     print(f'card vs CPU, 2 frames: decisions, Philips codes and line-0 '
           f'words equal; hsync stage max|d| {dhs:.2e} px, bad-line flags '
           f'equal; final linelocs max|d| {dll:.2e} px before the last 10 '
-          f'lines of a field, {dtail:.2e} px on them (lines over 0.02 px: '
-          f'{moved}); picture p99.9 {p999} max {pmax} LSB before the tail '
-          f'rows, tail rows max {tmax}; audio rms {arms:.3f} LSB with '
-          f'{int(picks.sum())} of {da.size} values over {AUDIO_PICK_LSB} LSB')
+          f'lines of a field, {dtail:.2e} px on them, wrap flips apart; '
+          f'wrap flips: {nflip} lines, {flip_rows} picture rows reading '
+          f'them, max {flip_lsb} LSB; picture p99.9 {p999} max {pmax} LSB '
+          f'before the tail rows, tail rows max {tmax} (budget {tail_max}); '
+          f'audio rms {arms:.3f} LSB with {int(picks.sum())} of {da.size} '
+          f'values over {AUDIO_PICK_LSB} LSB')
     if dhs > 0.02 or dll > 0.02 or p999 > 2 or pmax > 4 or arms > 0.6 \
             or picks.mean() > AUDIO_PICK_MAX:
         fail('sequential card vs CPU outside the budgets')
-    if cfg.system == 'NTSC' and (dtail > 0.02 or tmax > 4):
-        fail('NTSC sequential tail lines outside the budgets')
+    if dtail > 0.02 or tmax > tail_max:
+        fail(f'{cfg.system} sequential tail lines outside the budgets')
     return launches, gpu[0][0]
+
+
+def _wrap_flips(torch, np, cfg, step_a, step_b):
+    """tbc/pal.py::wrap_flip_lines for one field decoded twice (card a,
+    CPU b), from each decode's pilot-pass input: the hsync-stage line
+    locations, split as the decoder splits them, and the two demod taps
+    `pilot_offsets` reads.  Returns (lines, predicted, anchored,
+    detail)."""
+    from ld_decode_tpu_torch.tbc import pal as PAL
+    got = []
+    for _dev, ll, _bad, taps in (step_a, step_b):
+        lli = np.floor(ll).astype(np.int32)
+        llf = (ll - lli).astype(np.float32)
+        dev = taps['demod'].device
+        frac, cross = PAL.pilot_offsets(
+            taps['demod'], taps['demod_05'],
+            torch.from_numpy(lli)[None].to(dev),
+            torch.from_numpy(llf)[None].to(dev), cfg.linelen, cfg.freq_mhz)
+        got.append((frac[0].cpu().numpy(), cross[0].cpu().numpy(), lli,
+                    llf))
+    (fa, ca, ia, la), (fb, cb, ib, lb) = got
+    return PAL.wrap_flip_lines(fa, ca, fb, cb, (ia, ib), (la, lb),
+                               cfg.freq_mhz) + (_pilot_detail(np, got),)
+
+
+def _pilot_detail(np, got):
+    """A function of a line: each decode's pilot crossings on it (sample
+    index: phase) and its hsync-stage location, for a failure's message."""
+    def detail(l):
+        return '; '.join(
+            f'{name} loc {int(lli[l])} + {float(llf[l]):.6f}, crossings '
+            + ', '.join(f'{i}:{frac[l, i]:.5f}'
+                        for i in np.nonzero(cross[l])[0])
+            for name, (frac, cross, lli, llf) in zip(('card', 'cpu'), got))
+    return detail
+
+
+def _flipped_lines(np, d, lines, predicted, anchored, detail,
+                   what: str) -> list:
+    """The lines of d (CPU - card, px) past 0.02 px, each of which must be
+    a wrap flip whose difference is its prediction to 1e-4 px (F3,
+    ROADMAP.md Queue 3); fails on any other.  Returns those lines."""
+    pred = dict(zip(lines.tolist(), predicted.tolist()))
+    kind = dict(zip(lines.tolist(), ['anchor' if a else 'phase'
+                                     for a in anchored.tolist()]))
+    far = [int(l) for l in np.nonzero(np.abs(d) > 0.02)[0]]
+    for l in far:
+        if l not in pred:
+            fail(f'{what}: line {l} differs by {d[l]:.4f} px card vs CPU '
+                 f'and is no wrap flip ({detail(l)})')
+        if abs(d[l] - pred[l]) > 1e-4:
+            fail(f'{what}: wrap flip at line {l}: {d[l]:.6f} px card vs '
+                 f'CPU, {pred[l]:.6f} predicted ({detail(l)})')
+    if far:
+        print(f'{what}: wrap flips at lines {far}: '
+              + ', '.join(f'{d[l]:+.6f} px (predicted {pred[l]:+.6f}, '
+                          f'{kind[l]})' for l in far))
+    return far
 
 
 def locate_only_check(np, FR, CR, cfg, bank, loader, path, p, full,
@@ -2003,7 +2218,8 @@ def vhs_phase(torch, np):
     wins = [(k * step) for k in range(nwin)]
     dluma, dhz, gvid, gaud = 0, 0.0, [], []
     for w0 in wins:
-        gv, ga = V.decode_vhs(dcap[w0:w0 + n], gbank, cfg, nblocks)
+        gv, ga = V.decode_vhs(dcap[w0:w0 + n], gbank, cfg, nblocks,
+                              graphs=False)
         cv, ca = V.decode_vhs(torch.from_numpy(cap[w0:w0 + n]), cbank, cfg,
                               nblocks)
         if gv['luma'].device.type != 'cuda':
@@ -2017,7 +2233,7 @@ def vhs_phase(torch, np):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for w0 in wins:
-        V.decode_vhs(dcap[w0:w0 + n], gbank, cfg, nblocks)
+        V.decode_vhs(dcap[w0:w0 + n], gbank, cfg, nblocks, graphs=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     msa = nwin * step / dt / 1e6
@@ -3013,7 +3229,8 @@ def legacy_comb_phase(torch, np):
     for dim in (1, 2, 3):
         outs = {}
         for dev in ('cuda', 'cpu'):
-            comb = LG.LegacyPALComb(LG.LegacyPALConfig(dim=dim), device=dev)
+            comb = LG.LegacyPALComb(LG.LegacyPALConfig(dim=dim), device=dev,
+                                    graphs=False)
             outs[dev] = [comb.process(f) for f in frames]
         for k, (a, b) in enumerate(zip(outs['cuda'], outs['cpu'])):
             d = np.abs(a.astype(np.int64) - b)
@@ -3029,7 +3246,7 @@ def legacy_comb_phase(torch, np):
         raw = torch.from_numpy(frames[0].astype(np.int32)).cuda()
         cfg = LG.LegacyPALConfig(dim=dim)
         res[dim] = _event_median_ms(
-            torch, lambda: LG.comb_pal_legacy_frame(raw, cfg))
+            torch, lambda: LG.comb_pal_legacy_frame(raw, cfg, graphs=False))
         print(f'dim {dim}: {res[dim]:.4f} ms a frame on the card (CUDA '
               f'events, median of {CODEC_REPS})')
     return res
@@ -3211,6 +3428,8 @@ def _same(np, what: str, a, b):
         if a != b:
             fail(f'{what}: {a} vs {b}')
     else:
+        if hasattr(a, 'cpu'):                # a tensor, on the card too
+            a, b = a.cpu(), b.cpu()
         x, y = np.asarray(a), np.asarray(b)
         if x.dtype != y.dtype or x.shape != y.shape \
                 or x.tobytes() != y.tobytes():
@@ -3340,7 +3559,8 @@ def graphs_phase(torch, np, systems):
 # line counts captured before it); STREAM_GRAPH_FRAMES frames of phase 4's
 # capture through the streaming comb, timed whole and from
 # STREAM_GRAPH_STEADY on (every key replayed from there); the 16-field
-# field_finish_batch timed with CUDA events, median of FINISH_REPS
+# field_finish_batch (eager: phase 29 holds its graphs) timed with CUDA
+# events, median of FINISH_REPS
 SEQ_GRAPH_FRAMES, SEQ_GRAPH_STEADY = 8, 3
 STREAM_GRAPH_FRAMES, STREAM_GRAPH_STEADY = 12, 6
 FINISH_BATCH, FINISH_REPS = 16, 5
@@ -3562,7 +3782,7 @@ def _finish_batch(torch, np, FR, FU, CR, F, cfg, cap, nblk, start):
     def call(dev, b):
         a = [{k: v.to(dev) for k, v in x.items()} if isinstance(x, dict)
              else x.to(dev) for x in args]
-        return FU.field_finish_batch(*a, b, cfg, n_audio1)
+        return FU.field_finish_batch(*a, b, cfg, n_audio1, graphs=False)
 
     CR.resample_lines_batch.launches = 0
     got = {k: v.cpu().numpy() for k, v in call('cuda', bank).items()}
@@ -4017,6 +4237,236 @@ def segment_graphs_phase(torch, np, systems, woven, d: str):
     return res, k1
 
 
+# phase 29: the last compile-boundary keys, eager then graphed in one call
+# (graphs=False, then the default): the chain's device weave with its words
+# over the chain-mode frames of phase 4's and phase 10's captures, all kept
+# (as a comb window keeps them); field_analyze_batch / field_finish_batch on
+# 16-field batches at API_CALLS starts; decode_vhs over VHS_WINDOWS windows
+# of nblocks 66; the legacy PAL comb at dims 2 and 3 over LEGACY_FRAMES
+# frames.  Each bit-equal both ways, its counts and capture seconds, the
+# seconds of its first two calls (the warm-up and the capture) and, over
+# its calls run again, its host ms a call (the Python call, no
+# synchronisation, median) and its wall ms a call to the end of the device
+# work, both ways.
+WEAVE_FRAMES, API_CALLS, VHS_WINDOWS, LEGACY_FRAMES = 12, 4, 6, 4
+
+
+def _snapshot(cache) -> tuple:
+    return dict(cache.counts), set(cache.capture_seconds)
+
+
+def _site_counts(cache, before: tuple) -> dict:
+    """The cache's counts since `before` (a `_snapshot`), and the capture
+    seconds of each key captured since, by name."""
+    counts, keys = before
+    out = {k: cache.counts[k] - counts[k] for k in counts}
+    out['capture_s'] = {str(full[0][0]): round(sec, 4)
+                        for full, sec in cache.capture_seconds.items()
+                        if full not in keys}
+    return out
+
+
+def _host_ms(torch, calls) -> tuple:
+    """Run each of `calls` (no arguments) in turn, keeping the results,
+    then time them all again with their results dropped (as a user's loop
+    drops each call's result, so the allocator reuses its memory).
+    Returns (the first pass's results, a dict: the seconds of the first two
+    calls to the end of their device work (a key's warm-up and capture),
+    and from the second pass the median host ms of the Python call and the
+    wall ms a call to the end of the device work)."""
+    torch.cuda.synchronize()
+    outs = []
+    t0 = time.perf_counter()
+    for k, fn in enumerate(calls):
+        if k == 2:
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        outs.append(fn())
+    torch.cuda.synchronize()
+    host = []
+    t1 = time.perf_counter()
+    for fn in calls:
+        t = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return outs, {'first_two_s': round(t2 - t0, 4),
+                  'host_ms_a_call': round(statistics.median(host) * 1e3, 4),
+                  'wall_ms_a_call': round((time.perf_counter() - t1) * 1e3
+                                          / len(calls), 4)}
+
+
+def _weave_site(torch, np, cfg, cap, bank, start) -> dict:
+    from ld_decode_tpu_torch.tbc import framer as FR
+    from ld_decode_tpu_torch.utils.graphs import GraphCache
+    fr = FR.Framer(cfg, bank, capture=cap, batch=16, device='cuda',
+                   fetch_picture=False, nblocks=52 if cfg.system == 'NTSC'
+                   else 56)
+    pairs, s = [], start
+    for i in range(WEAVE_FRAMES + 1):
+        rv = fr.readframe(None, s, i == 0)
+        if rv[0] is None:
+            break
+        s = rv[2]
+        if all(f.dev_picture is not None for f in rv[3]):
+            pairs.append((rv[3], fr.mergevbi(rv[3])))
+    straddle = sum(p[0].dev_picture[0] is not p[1].dev_picture[0]
+                   for p, _ in pairs)
+    res = {'frames': len(pairs), 'straddling pairs': straddle}
+    outs = {}
+    for mode in ('eager', 'graph'):
+        fr.weave_graphs = GraphCache('cuda', mode)
+        before = _snapshot(fr.weave_graphs)
+        outs[mode], res[mode] = _host_ms(
+            torch, [lambda p=p, v=v: fr.formatoutput(p, v) for p, v in pairs])
+    res['graph'].update(_site_counts(fr.weave_graphs, before))
+    _same(np, f'{cfg.system} device weave', outs['eager'], outs['graph'])
+    if len(pairs) < WEAVE_FRAMES - 2 \
+            or res['graph']['replays'] != 2 * len(pairs) - 1:
+        fail(f'{cfg.system} device weave graphed vs eager: {res}')
+    return res
+
+
+def _api_batches(torch, np, FR, FU, cfg, cap, bank, nblk, start):
+    """API_CALLS 16-field batches from a locked start, 4 fields apart:
+    their starts and host line tables (the batch call's own analysis)."""
+    fr = FR.Framer(cfg, bank, capture=cap, batch=1, nblocks=nblk,
+                   device='cuda', graphs=False)
+    f0, rs0, _ = fr.readfield(None, start)
+    rs0 = int(f0.readsample if f0.readsample >= 0 else rs0)
+    pitch = int(round(cfg.freq_hz / cfg.sys.fps / 2))
+    calls = []
+    for k in range(API_CALLS):
+        starts = FU.pipeline_starts(rs0, 4 * k, FINISH_BATCH, pitch,
+                                    cap.shape[0], cfg, nblk, device='cuda')
+        _v, _a, lld, lc, valid, *_ = FU.pipeline_analyze(
+            fr.capture_dev, starts, 1.0, bank, cfg, nblk)
+        if not bool(valid.all()):
+            fail(f'{cfg.system} API batch {k}: invalid fields')
+        offs = torch.arange(FINISH_BATCH, device='cuda',
+                            dtype=torch.float32) * 2.5e-6 * (k + 1)
+        calls.append((starts, lld.lli, lld.llf, lld.bad, lc, offs,
+                      1.0 - 0.05 * k))
+    return fr.capture_dev, calls
+
+
+def _api_site(torch, np, cfg, cap, bank, nblk, start) -> dict:
+    from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    from ld_decode_tpu_torch.tbc import framer as FR
+    from ld_decode_tpu_torch.tbc import fused as FU
+    from ld_decode_tpu_torch.utils.graphs import api_cache
+    capt, calls = _api_batches(torch, np, FR, FU, cfg, cap, bank, nblk,
+                               start)
+    n_audio1 = nblk * bank.a_stage1_keep
+    shared = api_cache(True, 'cuda')[0]
+    res, outs = {}, {}
+    for mode, graphs in (('eager', False), ('graph', True)):
+        before = _snapshot(shared)
+        CR.resample_lines_batch.launches = 0
+        an, an_t = _host_ms(torch, [
+            lambda c=c: FU.field_analyze_batch(capt, c[0], bank, cfg, nblk,
+                                               c[6], graphs=graphs)
+            for c in calls])
+        fin, fin_t = _host_ms(torch, [
+            lambda c=c, a=a: FU.field_finish_batch(
+                a[0], a[1], *c[1:6], bank, cfg, n_audio1, graphs=graphs)
+            for c, a in zip(calls, an)])
+        res[mode] = {'analyze': an_t, 'finish': fin_t,
+                     'K1': CR.resample_lines_batch.launches}
+        if graphs:
+            # the two keys' counts together, each key's capture seconds
+            res[mode].update(_site_counts(shared, before))
+        outs[mode] = (an, fin)
+    _same(np, f'{cfg.system} field_analyze_batch / field_finish_batch',
+          outs['eager'], outs['graph'])
+    counts = tuple(res['graph'][k] for k in ('eager_warmups', 'captures',
+                                             'replays'))
+    if res['eager']['K1'] != res['graph']['K1'] \
+            or counts != (2, 2, 2 * (2 * API_CALLS - 1)):
+        fail(f'{cfg.system} field_analyze_batch / field_finish_batch '
+             f'graphed vs eager: {res}')
+    return res
+
+
+def _vhs_site(torch, np) -> dict:
+    from ld_decode_tpu_torch.ops import demod as D
+    from ld_decode_tpu_torch.tape import vhs as V
+    from ld_decode_tpu_torch.utils.graphs import api_cache
+    cfg = V.vhs_config()
+    nblocks = 66
+    n = D.stream_len(cfg, nblocks)
+    step = nblocks * cfg.block_keep
+    rng = np.random.default_rng(RNG_SEED)
+    sig = torch.from_numpy(rng.normal(
+        32768, 6000, n + (VHS_WINDOWS - 1) * step).astype(np.float32)).cuda()
+    bank = V.make_vhs_bank(cfg, device='cuda')
+    shared = api_cache(True, 'cuda')[0]
+    res, outs = {}, {}
+    for mode, graphs in (('eager', False), ('graph', True)):
+        before = _snapshot(shared)
+        outs[mode], res[mode] = _host_ms(torch, [
+            lambda k=k: V.decode_vhs(sig[k * step:k * step + n], bank, cfg,
+                                     nblocks, graphs=graphs)
+            for k in range(VHS_WINDOWS)])
+        # the steady rate: every window again, the key captured
+        res[mode]['MSa_s'] = round(
+            step / res[mode]['wall_ms_a_call'] / 1e3, 2)
+        if graphs:
+            res[mode].update(_site_counts(shared, before))
+    _same(np, 'decode_vhs', outs['eager'], outs['graph'])
+    if res['graph']['captures'] != 1 \
+            or res['graph']['replays'] != 2 * VHS_WINDOWS - 1:
+        fail(f'decode_vhs graphed vs eager: {res}')
+    return res
+
+
+def _legacy_site(torch, np) -> dict:
+    from ld_decode_tpu_torch.comb import comb_pal_legacy as LG
+    frames = [_legacy_pal_frame(np, seed) for seed in range(LEGACY_FRAMES)]
+    res = {}
+    for dim in (2, 3):
+        outs = {}
+        for mode, graphs in (('eager', False), ('graph', True)):
+            comb = LG.LegacyPALComb(LG.LegacyPALConfig(dim=dim),
+                                    device='cuda', graphs=graphs)
+            before = _snapshot(comb.graphs)
+            outs[mode], res[f'dim {dim} {mode}'] = _host_ms(torch, [
+                lambda f=f: comb.process(f) for f in frames])
+            if graphs:
+                res[f'dim {dim} {mode}'].update(_site_counts(comb.graphs,
+                                                             before))
+        _same(np, f'legacy PAL comb dim {dim}', outs['eager'],
+              outs['graph'])
+        if res[f'dim {dim} graph']['replays'] != 2 * LEGACY_FRAMES - 1:
+            fail(f'legacy PAL comb dim {dim} graphed vs eager: {res}')
+    return res
+
+
+def api_graphs_phase(torch, np, systems) -> dict:
+    """systems: {name: (cfg, cap, bank)}.  Returns each site's numbers;
+    fails unless every site is bit-equal both ways (`_same`) with its
+    counts."""
+    phase('29 the last compile-boundary keys: graphs vs eager')
+    res = {}
+    for name, (cfg, cap, bank) in systems.items():
+        start = 33046 if name == 'NTSC' else PAL_START
+        res[f'{name} weave'] = _weave_site(torch, np, cfg, cap, bank, start)
+        print(f'{name} device weave, bit-equal both ways',
+              json.dumps(res[f'{name} weave']))
+        res[f'{name} analyze/finish'] = _api_site(
+            torch, np, cfg, cap, bank, 52 if name == 'NTSC' else 56, start)
+        print(f'{name} field_analyze_batch / field_finish_batch, '
+              f'{FINISH_BATCH} fields, bit-equal both ways', json.dumps(
+                  res[f'{name} analyze/finish']))
+    res['decode_vhs'] = _vhs_site(torch, np)
+    print(f'decode_vhs, {VHS_WINDOWS} windows of nblocks 66 (real time '
+          f'28.64 MSa/s), bit-equal both ways', json.dumps(res['decode_vhs']))
+    res['legacy PAL comb'] = _legacy_site(torch, np)
+    print('legacy PAL comb, bit-equal both ways',
+          json.dumps(res['legacy PAL comb']))
+    return res
+
+
 # phase 28: the repo's bench through the port (bench_torch.py --quick), in
 # its own process, so every count there starts at 0
 BENCH_DECODE = ('ntsc', 'ntsc_noisy', 'pal')
@@ -4102,7 +4552,7 @@ def run(torch, np, work: str):
     del fr
     k1, k2, dev_frames, woven = chain_phase(torch, np, cfg, cap, bank)
     comb_parity_phase(torch, np, dev_frames)
-    chain_cli_phase(np, cap, cfg)
+    chain_cli_phase(torch, np, cap, cfg)
     del dev_frames
 
     pcfg, pcap, pbank, pfr, pal_launches = main_path_phase(torch, np, 'PAL')
@@ -4115,7 +4565,7 @@ def run(torch, np, work: str):
     pal_comb_parity_phase(torch, np, pal_frames)
     pal_cli = cli_phase(np, pcap, pcfg, _subdir(work, 'pal'),
                         title='14 PAL cli')
-    chain_cli_phase(np, pcap, pcfg, title='14 PAL chain cli')
+    chain_cli_phase(torch, np, pcap, pcfg, title='14 PAL chain cli')
     del pal_frames
 
     seq_ntsc, base = seq_decode_phase(torch, np, cfg, cap, bank, work)
@@ -4151,6 +4601,7 @@ def run(torch, np, work: str):
         _subdir(work, 'seg'))
     print('segments and combs, graphs vs eager', json.dumps(seg_graphs))
     bench = bench_phase(torch)
+    api = api_graphs_phase(torch, np, systems)
     if 'jax' in sys.modules:
         fail('jax was imported')
 
@@ -4178,6 +4629,10 @@ def run(torch, np, work: str):
                     seq_launches['NTSC resident sequential'],
                 'ntsc finish batch': seq_launches['NTSC finish batch'],
                 'pal finish batch': seq_launches['PAL finish batch'],
+                'ntsc finish batch graphs':
+                    api['NTSC analyze/finish']['graph']['K1'],
+                'pal finish batch graphs':
+                    api['PAL analyze/finish']['graph']['K1'],
                 'ldview graphs': seq_launches['ldview graphs'],
                 'ldview': two['k1_view'], 'pal decode': pal_launches,
                 'pal chain': pal_k1, 'ntsc decode': launches,

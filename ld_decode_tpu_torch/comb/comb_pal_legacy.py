@@ -29,6 +29,7 @@ np.uint16 on the host.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Union
 
 import numpy as np
 import torch
@@ -36,7 +37,10 @@ import torch.nn.functional as F
 
 from ld_decode_tpu_torch.comb.comb_ntsc import FILTERS
 from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
+from ld_decode_tpu_torch.utils.device import constant
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
+from ld_decode_tpu_torch.utils.graphs import (GraphCache, api_cache,
+                                              as_cache, owned)
 
 L_Y, L_X = 610, 1052
 IRESCALE = 376.32              # attic2/comb-pal.cxx:49
@@ -177,8 +181,7 @@ def _do_ynr(y, nr_y_ire: float):
     nr = nr_y_ire * IRESCALE
     xm = torch.where(_cols(40, L_X, dev), y, 0.0)
     b = FILTERS['nr']
-    w = torch.as_tensor(np.ascontiguousarray(b[::-1]), dtype=y.dtype,
-                        device=dev).reshape(1, 1, -1)
+    w = constant(b[::-1], y.dtype, dev).reshape(1, 1, -1)
     hp = F.conv1d(F.pad(xm.reshape(-1, 1, L_X), (len(b) - 1, 0)),
                   w).reshape(y.shape)
     a = torch.clamp(F.pad(hp, (0, 12))[..., 12:], -nr, nr)
@@ -228,10 +231,26 @@ def _to_rgb(y, u, v, cfg: LegacyPALConfig) -> torch.Tensor:
     return rgb.to(torch.int32)
 
 
-def comb_pal_legacy_frame(raw_u16: torch.Tensor,
-                          cfg: LegacyPALConfig) -> torch.Tensor:
+def comb_pal_legacy_frame(raw_u16: torch.Tensor, cfg: LegacyPALConfig,
+                          graphs: Union[bool, GraphCache] = True
+                          ) -> torch.Tensor:
     """(..., 610, 1052) rawbuffers (integer tensors of 16-bit samples) ->
-    (..., 576, 1052, 3) int32 RGB48 (before the crop)."""
+    (..., 576, 1052, 3) int32 RGB48 (before the crop).
+
+    graphs=True (the default; the JAX function is jitted on `cfg`) replays
+    the frame as one CUDA graph a cfg (and input shape) key on the card
+    and returns a clone of its RGB (utils/graphs.py::api_cache; eager on
+    the CPU); False runs it eagerly; a GraphCache is used as given and
+    returns its static output."""
+    cache, clone = api_cache(graphs, raw_u16.device)
+    rgb = cache(('comb_pal_legacy_frame', cfg),
+                lambda raw: _legacy_frame(raw, cfg), (raw_u16,))
+    return owned(rgb) if clone else rgb
+
+
+def _legacy_frame(raw_u16: torch.Tensor,
+                  cfg: LegacyPALConfig) -> torch.Tensor:
+    """comb_pal_legacy_frame's chain of passes."""
     raw = raw_u16.to(torch.float32)
     invert_col = raw_u16[..., 0] == 16384
     dev = raw.device
@@ -258,12 +277,17 @@ class LegacyPALComb:
     (attic2/comb-pal.cxx:820-917).  dim=3 runs the 2D chain on the
     one-frame-old slot (Split3D is #if 0'd out), so the first output of a
     dim-3 run is the all-zero primer frame, exactly like the binary.
-    Runs on `device` (the card by default); returns np.uint16 RGB."""
+    Runs on `device` (the card by default); returns np.uint16 RGB.
+    graphs=True (the default) replays each frame as one CUDA graph on the
+    card (utils/graphs.py; eager on the CPU); graphs=False runs it
+    eagerly, for comparisons; a GraphCache is used as given."""
 
     def __init__(self, cfg: LegacyPALConfig = LegacyPALConfig(),
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE,
+                 graphs: Union[bool, GraphCache] = True):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.graphs = as_cache(graphs, self.device)
         self._prev = np.zeros((L_Y, L_X), np.uint16)
 
     def process(self, framebuf: np.ndarray) -> np.ndarray:
@@ -272,9 +296,11 @@ class LegacyPALComb:
             work, self._prev = self._prev, frame
         else:
             work = frame
+        # replayed, the RGB is the graph's static output: the host copy
+        # below takes it before the next frame
         rgb = comb_pal_legacy_frame(
             torch.from_numpy(work.astype(np.int32)).to(self.device),
-            self.cfg)
+            self.cfg, graphs=self.graphs)
         if not self.cfg.wide:
             rgb = rgb[:, CROP_X0:CROP_X0 + CROP_W]
         return rgb.cpu().numpy().astype(np.uint16)

@@ -24,7 +24,7 @@ dropouts.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import scipy.signal as sps
@@ -33,6 +33,7 @@ import torch
 from ld_decode_tpu_torch.ops import demod as D
 from ld_decode_tpu_torch.ops.filters import DemodBank, filtfft, make_demod_bank
 from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
+from ld_decode_tpu_torch.utils.graphs import GraphCache, api_cache, owned
 from ld_decode_tpu_torch.utils.params import DecoderConfig
 
 # u16 output scale (reference attic/vhs/vhs-decoder.py:263-268)
@@ -64,8 +65,8 @@ def luma_to_u16(cfg: DecoderConfig, demod_hz: torch.Tensor) -> torch.Tensor:
 
 
 def decode_vhs(samples: torch.Tensor, bank: DemodBank, cfg: DecoderConfig,
-               nblocks: int) -> Tuple[Dict[str, torch.Tensor],
-                                      Dict[str, torch.Tensor]]:
+               nblocks: int, graphs: Union[bool, GraphCache] = True
+               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Demodulate a tape RF stream (exactly stream_len(cfg, nblocks) long)
     on the samples' device: returns (video, audio) dicts.
 
@@ -73,12 +74,26 @@ def decode_vhs(samples: torch.Tensor, bank: DemodBank, cfg: DecoderConfig,
     'demod_sync' (the sync-detector channel: find_sync_peaks locks onto the
     tape line pitch, but the laserdisc TBC does not take the VHS profile).
     audio: instantaneous carrier Hz per channel at the stage-1 decimated
-    rate (empty dict when audio is disabled)."""
+    rate (empty dict when audio is disabled).
+
+    graphs=True (the default; the JAX package jits `demod_stream`) replays
+    the demod and the luma scale as one CUDA graph a (window length,
+    nblocks) key on the card, the bank read in place, and returns clones
+    of its outputs (utils/graphs.py::api_cache; eager on the CPU); False
+    runs it eagerly; a GraphCache is used as given and returns its static
+    outputs."""
     assert cfg.system == 'VHS', cfg.system
-    video, audio = D.demod_stream(samples, bank, cfg, nblocks, 0.0)
-    video = dict(video)
-    video['luma'] = luma_to_u16(cfg, video['demod'])
-    return video, dict(audio) if audio else {}
+    cache, clone = api_cache(graphs, samples.device)
+
+    def run(x):
+        video, audio = D.demod_stream(x, bank, cfg, nblocks, 0.0)
+        video = dict(video)
+        video['luma'] = luma_to_u16(cfg, video['demod'])
+        return video, dict(audio) if audio else {}
+
+    out = cache(('decode_vhs', cfg, samples.shape[-1], nblocks), run,
+                (samples,), reads=tuple(bank.buffers()))
+    return owned(out) if clone else out
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ the framer's fallback for the first field, as in the JAX package;
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
@@ -50,6 +50,7 @@ from ld_decode_tpu_torch.tbc.codec import (  # noqa: F401
     encode_picture_payload, encode_picture_planes, pack_tab,
     pic_codec_params, shipped_plane_words_np, tab_words, unpack_tab)
 from ld_decode_tpu_torch.tbc.cuda_resample import resample_lines_batch
+from ld_decode_tpu_torch.utils.graphs import GraphCache, api_cache, owned
 from ld_decode_tpu_torch.vbi.philips import slice_philips_dev
 
 PHILIPS_MARGIN = 16  # us beyond one line gathered for the VBI slicer
@@ -159,15 +160,28 @@ def field_analyze(capture: torch.Tensor, start, bank: DemodBank,
 
 def field_analyze_batch(capture: torch.Tensor, starts: torch.Tensor,
                         bank: DemodBank, cfg: DecoderConfig, nblocks: int,
-                        mtf_level):
+                        mtf_level,
+                        graphs: Union[bool, GraphCache] = True):
     """Phase A over a (B,) tensor of window starts (the JAX package's vmap
     of the analyze phase; the capture and the bank are shared).  Returns
     (video, audio, peak idx (B, MAX_PEAKS), peak val (B, MAX_PEAKS)).
     The JAX function packs idx/val into one flat u16 bundle for its
     device-to-host tunnel (`PEAKS_SPEC`); bundles do not carry over to the
-    port, which returns the tensors."""
-    return _analyze_core(capture, starts.to(torch.int32), bank, cfg,
-                         nblocks, mtf_level)
+    port, which returns the tensors.
+
+    graphs=True (the default; the JAX function is jitted) replays the call
+    as one CUDA graph a (cfg, nblocks, B) key on the card, the capture
+    and the bank read in place, and returns clones of its outputs
+    (utils/graphs.py::api_cache; eager on the CPU); False runs it eagerly;
+    a GraphCache is used as given and returns its static outputs."""
+    cache, clone = api_cache(graphs, capture.device)
+    out = cache(
+        ('field_analyze_batch', cfg, nblocks, starts.shape[0]),
+        lambda s, m: _analyze_core(capture, s, bank, cfg, nblocks, m),
+        (starts.to(capture.device, torch.int32),
+         D._level(mtf_level, bank.rdtype, capture.device)),
+        reads=(capture,) + tuple(bank.buffers()))
+    return owned(out) if clone else out
 
 
 # ---------------------------------------------------------------------------
@@ -529,7 +543,8 @@ def field_finish_core(video, audio1, ll1i, ll1f, linebad, lc, audio_offset,
 def field_finish_batch(video, audio1, ll1i, ll1f, linebad, lc, audio_offset,
                        bank: DemodBank, cfg: DecoderConfig, n_audio1: int,
                        colorlevel: float = 1.45, colorphase: float = 91.5,
-                       pallas: bool = False):
+                       pallas: bool = False,
+                       graphs: Union[bool, GraphCache] = True):
     """The finish over a leading batch-of-fields axis (B, ...): one K1
     launch for the whole batch's picture ((B, 263, 910) NTSC, (B, 313,
     1135) PAL from line 3) and, for NTSC, two for its burst windows.
@@ -541,11 +556,34 @@ def field_finish_batch(video, audio1, ll1i, ll1f, linebad, lc, audio_offset,
     picks the TPU kernel for the batch's resamples (which differs from the
     XLA graph by up to 4 LSB, ld_decode_tpu/tbc/fused.py:977-981) over the
     vmapped XLA gathers; the port always takes its one resample dispatcher,
-    whose kernel and plain version both hold to the XLA contract."""
+    whose kernel and plain version both hold to the XLA contract.
+
+    graphs as in `field_analyze_batch`: one CUDA graph a (cfg, n_audio1,
+    B) key (with colorlevel and colorphase; the taps' shapes carry
+    nblocks), K1's launches credited on every replay.  The video and
+    audio taps are dynamic inputs, copied into the graph's own, so any
+    caller's taps replay one key."""
     del pallas
-    return field_finish(video, audio1, ll1i, ll1f, linebad, lc,
-                        audio_offset, bank, cfg, n_audio1, colorlevel,
-                        colorphase)
+    cache, clone = api_cache(graphs, ll1i.device)
+    vkeys = sorted(video)
+    akeys = sorted(audio1) if audio1 is not None else []
+    with_audio = audio1 is not None
+
+    def finish(*args):
+        v = dict(zip(vkeys, args[:len(vkeys)]))
+        n = len(vkeys) + len(akeys)
+        a = dict(zip(akeys, args[len(vkeys):n])) if with_audio else None
+        return field_finish(v, a, *args[n:], bank, cfg, n_audio1,
+                            colorlevel, colorphase)
+
+    out = cache(
+        ('field_finish_batch', cfg, n_audio1, ll1i.shape[0], colorlevel,
+         colorphase, tuple(vkeys), tuple(akeys), with_audio), finish,
+        [video[k] for k in vkeys] + [audio1[k] for k in akeys]
+        + [ll1i, ll1f, linebad, lc,
+           _scalar(audio_offset, torch.float32, ll1i.device)],
+        reads=tuple(bank.buffers()))
+    return owned(out) if clone else out
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,17 @@ makes that call outside the cache.  As PyTorch's whole-network capture
 recipe asks, a warm-up on the card runs on a side stream, so that a
 captured backward pass finds no state of the default stream.
 
+A function of the port's API that the JAX package jits at module level
+(`tbc/fused.py::field_analyze_batch`, `field_finish_batch`,
+`tape/vhs.py::decode_vhs`, `comb/comb_pal_legacy.py::
+comb_pal_legacy_frame`) has no object to hold a cache: its `graphs=True`
+takes the device's process-wide cache (`api_cache`), and returns clones
+of a replay's outputs, tensors of the caller's own as the JAX function
+returns them.  Its keys name the tensors read in place (a capture, a
+bank), so it holds the API_KEYS keys called last, not every key since
+the process began.  A caller that passes its own GraphCache gets the
+static outputs and clones what it keeps.
+
 A capture that fails raises: on the card nothing falls back to eager.  On
 the CPU the cache runs the function eagerly (mode 'eager').  Mode
 'emulate', which only a caller can ask for and only off the card, keeps
@@ -61,6 +72,7 @@ from __future__ import annotations
 
 import gc
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -140,6 +152,39 @@ def as_cache(graphs, device, staged: bool = False) -> 'GraphCache':
     return GraphCache(device, 'eager' if graphs is False else None)
 
 
+_SHARED: Dict[str, 'GraphCache'] = {}
+# the keys the process-wide cache of a device holds at most: a key names
+# the tensors its function reads in place (a capture, a bank), so a caller
+# that passes fresh ones makes fresh keys
+API_KEYS = 16
+
+
+def api_cache(graphs, device) -> Tuple['GraphCache', bool]:
+    """A module-level API function's `graphs` argument as (cache, whether
+    to clone the call's outputs): True the device's process-wide cache
+    (graphs on the card, eager on the CPU) with clones of its outputs;
+    False eager; a GraphCache as given, its outputs as it returns them."""
+    if isinstance(graphs, GraphCache):
+        return graphs, False
+    if graphs is False:
+        return GraphCache(device, 'eager'), False
+    dev = torch.device(device)
+    if dev.type == 'cuda' and dev.index is None:
+        dev = torch.device('cuda', torch.cuda.current_device())
+    cache = _SHARED.get(str(dev))
+    if cache is None:
+        cache = _SHARED[str(dev)] = GraphCache(dev, max_keys=API_KEYS)
+    return cache, cache.aliased
+
+
+def owned(out):
+    """A call's outputs as tensors of their own: clones of every tensor in
+    the (nested) result."""
+    leaves, spec = tree_flatten(out)
+    return tree_unflatten([x.clone() if isinstance(x, torch.Tensor) else x
+                           for x in leaves], spec)
+
+
 @dataclass
 class _Graph:
     """One key: its static inputs and outputs, the graph and its pool, the
@@ -164,7 +209,8 @@ class GraphCache:
     'eager' elsewhere; 'eager' runs every call eagerly; 'emulate' (not on
     a CUDA device) keeps the static-buffer protocol without a graph."""
 
-    def __init__(self, device, mode: Optional[str] = None):
+    def __init__(self, device, mode: Optional[str] = None,
+                 max_keys: Optional[int] = None):
         self.device = torch.device(device)
         on_card = self.device.type == 'cuda'
         if mode is None:
@@ -178,8 +224,12 @@ class GraphCache:
             raise ValueError('the emulated protocol is for the CPU; the card '
                              'captures graphs')
         self.mode = mode
+        # max_keys bounds the keys held, warmed up or captured: past it the
+        # least recently called goes, its graph and pool with it
+        self.max_keys = max_keys
         self._graphs: Dict[tuple, _Graph] = {}
         self._seen: set = set()
+        self._order: 'OrderedDict[tuple, None]' = OrderedDict()
         self._side = None                # the warm-ups' stream on the card
         self.counts = {'eager_warmups': 0, 'captures': 0, 'replays': 0}
         self.capture_seconds: Dict[tuple, float] = {}
@@ -205,6 +255,9 @@ class GraphCache:
                 tuple((t.data_ptr(),) + _signature(t) for t in reads),
                 tuple(_signature(t) for t in inputs),
                 tuple(id(gen) for gen in generators))
+        self._order[full] = None
+        self._order.move_to_end(full)
+        self._evict()
         g = self._graphs.get(full)
         run = True
         if g is None:
@@ -226,6 +279,14 @@ class GraphCache:
                 s.copy_(x)
         self._replay(g, fn, run)
         return tree_unflatten(list(g.static_out), g.spec)
+
+    def _evict(self):
+        """Drop the least recently called keys past max_keys."""
+        while self.max_keys is not None and len(self._order) > self.max_keys:
+            old, _ = self._order.popitem(last=False)
+            self._seen.discard(old)
+            self._graphs.pop(old, None)
+            self.capture_seconds.pop(old, None)
 
     def _warm_up(self, fn: Callable, inputs: Sequence[torch.Tensor]):
         """A key's first call, eager; on the card on a side stream that

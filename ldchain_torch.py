@@ -11,9 +11,14 @@ where they are; only the RGB frames and the audio come to the host.
 Same arguments as ldchain_tpu.py plus --device (default `cuda`; without a
 CUDA device it fails unless `--device cpu` asks for the CPU).  --efm also
 pulls the EFM digital audio out of the capture on the host
-(<out>.efm.pcm + <out>.subcode.log).  Like ldchain_tpu.py,
-`-l` stops on the frames written so far, so the audio may run a few frames
-past the video.
+(<out>.efm.pcm + <out>.subcode.log).
+
+`-l N` writes the audio of exactly the first N decoded frames, a named
+divergence from ldchain_tpu.py (ROADMAP.md Queue 3, fixed in the port):
+the loop stops when the sink holds N frames, which lags the decode by up
+to a comb window per window in flight, and ldchain_tpu.py writes the audio
+of every frame it decoded.  The video is JAX's: the chain still decodes
+past N for the comb's lookahead.
 """
 
 import argparse
@@ -187,6 +192,7 @@ def main(argv=None):
     # the next frames decode
     windows = CombWindows(comb, args.comb_batch, args.depth, emit)
     first = True
+    decoded = 0
     try:
         while args.length is None or sink.nframes < args.length:
             combined, audio, nextsample, fields = framer.readframe(
@@ -194,7 +200,11 @@ def main(argv=None):
             first = False
             if combined is None:
                 break
+            decoded += 1
             windows.push(combined.reshape(Y, X))
+            # -l: the audio of the first N decoded frames only
+            if args.length is not None and decoded > args.length:
+                continue
             if audio is not None and out_audio is not None:
                 pcm = np.asarray(audio).ravel()
                 out = cx.process(pcm) if not args.no_cx \

@@ -19,11 +19,12 @@ collected one window apart; PAL (--pal) through PALComb or PALCombBatch.
 block-parallel evaluation on the device (kernel K3).
 
 As in ldexport_tpu.py, -l stops the video after N frames while the audio is
-expanded in full before the video starts (the reference tools' bug family
-recorded in ROADMAP.md Queue 3 for ldchain_tpu.py:218): the .pcm runs past
-the video.  -t (NN-comb training mode, reference comb -t) forces -d 3 and
-per-frame images, collects up to 128 raw .tbc frames (NTSC only) and writes
-their 3D-comb-supervised training pairs to <out>.train.npz
+expanded in full before the video starts: the .pcm runs past the video.
+This is not ldchain's `-l` overrun, which the port fixed (ROADMAP.md Queue
+3): the .pcm is an input stream, and the .tbc carries no frame's audio
+count to cut it at.  -t (NN-comb training mode, reference comb -t) forces
+-d 3 and per-frame images, collects up to 128 raw .tbc frames (NTSC only)
+and writes their 3D-comb-supervised training pairs to <out>.train.npz
 (models/nn_comb.py, on the same device), which either package's
 train_nn_comb(data=...) reads.
 """

@@ -427,8 +427,10 @@ def test_pilot_line_median_at_the_wrap(monkeypatch):
     fractions (the reference's pass; the JAX package's and the port's
     alike).  Where a line's fractions straddle the 0/1 wrap, one fraction
     crossing it moves the median to the next order statistic: here 0.09
-    of a cycle, 0.24 px -- what chip_smoke.py phase 15 saw card vs CPU on
-    a PAL line below the picture (ROADMAP.md Queue 3: the pilot median)."""
+    of a cycle, 0.24 px (ROADMAP.md Queue 3, F3: the pilot median).  The
+    0.25 px chip_smoke.py phase 15 sees card vs CPU on a PAL field's last
+    line comes through the line's anchor instead
+    (test_wrap_flip_lines_on_an_anchor_a_sample_apart)."""
     L, W = 4, 7
     moved = []
     for first in (0.001, 0.9995):
@@ -447,3 +449,177 @@ def test_pilot_line_median_at_the_wrap(monkeypatch):
     # a cycle
     assert moved[0][3] == pytest.approx((0.5 - 0.9) * 40 / 3.75 / 4, abs=1e-5)
     assert moved[0][3] - moved[1][3] == pytest.approx(0.24, abs=1e-5)
+
+
+@pytest.mark.parametrize('shift', [0, 1])
+def test_wrap_flip_lines_on_the_monkeypatched_wrap(monkeypatch, shift):
+    """The wrap case above through `wrap_flip_lines`: the one line whose
+    used fraction crossed the wrap is named, and the 0.24 px it moved is
+    what the changed order statistic predicts.  shift=1 puts that
+    crossing one sample later in the second decode (a sample next to zero
+    rounding to the other sign): the phases still match as a set."""
+    L, W = 4, 20
+    at = np.array([0, 3, 6, 9, 12, 15, 18])
+    fracs, locs = [], []
+    for k, first in enumerate((0.001, 0.9995)):
+        frac = torch.full((1, L, W), 0.5)
+        cross = torch.zeros((1, L, W), dtype=torch.bool)
+        idx = at.copy()
+        idx[1] += shift * k
+        cross[0, :, idx] = True
+        # 7 crossings: the pass drops the first and the last of a line
+        frac[0, 3, idx[1:6]] = torch.tensor([first, 0.02, 0.9, 0.99, 0.999])
+        monkeypatch.setattr(TPAL, 'pilot_offsets',
+                            lambda *_a, f=frac, c=cross: (f, c))
+        lli = torch.arange(L, dtype=torch.int32)[None] * 2560 + 5000
+        li, lf = TPAL._refine_pilot_once(None, None, lli, torch.zeros(1, L),
+                                         2560, 40.0, relative_only=False)
+        fracs.append((frac[0].numpy(), cross[0].numpy()))
+        locs.append(_loc(li, lf)[0])
+    ii, ff = lli[0].numpy(), np.zeros(L, np.float32)
+    lines, pred, anchored = TPAL.wrap_flip_lines(
+        *fracs[0], *fracs[1], (ii, ii), (ff, ff), 40.0)
+    found = locs[1] - locs[0]
+    assert lines.tolist() == [3] and not anchored.any()
+    assert pred[0] == pytest.approx(-0.24, abs=1e-5)
+    assert found[3] == pytest.approx(pred[0], abs=1e-4)
+    assert np.abs(found[:3]).max() == 0
+
+
+def test_wrap_flip_lines_on_seeded_straddling_fields():
+    """The seeded fields of test_refine_pilot_seeded_edge_cases whose
+    fractions straddle the wrap, decoded again with the pilot's phase
+    nudged back by 1 and by 3 thousandths of a cycle: the lines a nudged
+    fraction carried across the wrap (in the field whose rows straddle it)
+    are the flips `wrap_flip_lines` names, each moved by the difference it
+    predicts to 1e-4 px (some past 0.02 px); every other line moves by at
+    most 0.02 px (the nudge alone is up to 0.008 px).  Against JAX's
+    fractions the port's flip nowhere (test_refine_pilot_seeded_edge_cases),
+    so there it names no line."""
+    cfg = DecoderConfig(system='PAL', freq_mhz=40.0)
+    flips, big = 0, 0.0
+    for phase, nudge in ((0.40, -1e-3), (0.40, -3e-3), (0.4415, -1e-3),
+                         (0.4415, -3e-3)):
+        got = []
+        for nudge in (0.0, nudge):
+            rng = np.random.default_rng(31)
+            demod, d05, lli, llf = _pilot_field(rng, phase + nudge)
+            args = [T(x)[None] for x in (demod, d05, lli, llf)]
+            frac, cross = TPAL.pilot_offsets(*args, cfg.linelen,
+                                             cfg.freq_mhz)
+            li, lf = TPAL._refine_pilot_once(*args, cfg.linelen,
+                                             cfg.freq_mhz, False)
+            got.append((frac[0].numpy(), cross[0].numpy(),
+                        _loc(li, lf)[0]))
+        (fa, ca, la), (fb, cb, lb) = got
+        lines, pred, anchored = TPAL.wrap_flip_lines(
+            fa, ca, fb, cb, (lli, lli), (llf, llf), cfg.freq_mhz)
+        assert not anchored.any()
+        d = lb - la
+        flips += lines.size
+        np.testing.assert_allclose(d[lines], pred, rtol=0, atol=1e-4)
+        rest = np.setdiff1d(np.arange(d.size), lines)
+        assert np.abs(d[rest]).max() <= 0.02
+        big = max(big, float(np.abs(d[lines]).max(initial=0.0)))
+
+        wfrac, wcross = _j_offsets(*(x[None] for x in _pilot_field(
+            np.random.default_rng(31), phase)), cfg)
+        none, _, _ = TPAL.wrap_flip_lines(wfrac[0], wcross[0], fa, ca,
+                                          (lli, lli), (llf, llf),
+                                          cfg.freq_mhz)
+        assert none.size == 0
+    # a flip moves its line by an order statistic's step: here past the
+    # 0.02 px budget
+    assert flips >= 8 and big > 0.02
+
+
+def _anchor_decodes(cfg, locs, l=10):
+    """The seeded field of phase 0.77 decoded once for each location of
+    line l in `locs` (px from the integer nearest the line's own): each
+    decode's (pilot_offsets, anchors, fractions, locations after the
+    pass)."""
+    demod, d05, lli, llf = _pilot_field(np.random.default_rng(31), 0.77)
+    edge = float(np.round(lli[l] + llf[l]))       # the nearest integer
+    got = []
+    for loc in locs:
+        ii, ff = lli.copy(), llf.copy()
+        ii[l] = np.floor(edge + loc)
+        ff[l] = np.float32(edge + loc - ii[l])
+        args = [T(x)[None] for x in (demod, d05, ii, ff)]
+        frac, cross = TPAL.pilot_offsets(*args, cfg.linelen, cfg.freq_mhz)
+        li, lf = TPAL._refine_pilot_once(*args, cfg.linelen, cfg.freq_mhz,
+                                         False)
+        got.append((frac[0].numpy(), cross[0].numpy(), ii, ff,
+                    _loc(li, lf)[0]))
+    return got
+
+
+def test_wrap_flip_lines_on_an_anchor_a_sample_apart():
+    """A line whose location sits 5e-5 px either side of an integer in two
+    decodes (what chip_smoke.py phase 15 found card vs CPU on line 312 of
+    a PAL field): the pass reads its pilot from windows a sample apart,
+    every phase moves by 3.75/40 of a cycle and the line by a quarter of
+    a pixel.  `wrap_flip_lines` names it as an anchor flip and predicts
+    the difference to 1e-4 px; the other lines stay within 0.02 px."""
+    cfg = DecoderConfig(system='PAL', freq_mhz=40.0)
+    l = 10
+    (fa, ca, ia, fla, la), (fb, cb, ib, flb, lb) = _anchor_decodes(
+        cfg, (-5e-5, 5e-5), l)
+    lines, pred, anchored = TPAL.wrap_flip_lines(
+        fa, ca, fb, cb, (ia, ib), (fla, flb), cfg.freq_mhz)
+    d = lb - la
+    assert lines.tolist() == [l] and anchored.tolist() == [True]
+    assert abs(d[l]) > 0.2
+    assert d[l] == pytest.approx(pred[0], abs=1e-4)
+    assert np.abs(np.delete(d, l)).max() <= 0.02
+
+
+def test_wrap_flip_lines_names_no_line_that_entered_apart():
+    """Anchors a sample apart make a flip only where the two locations
+    the pass started from straddle an integer within 0.02 px and the
+    phases moved by a sample: the same line entering 1 px apart (an hsync
+    stage a pixel off), or 0.03 px apart, is no flip, nor is one whose
+    phases did not move with its anchor."""
+    cfg = DecoderConfig(system='PAL', freq_mhz=40.0)
+    l = 10
+    for locs in ((-0.3, 0.7), (-0.015, 0.015)):
+        (fa, ca, ia, fla, _), (fb, cb, ib, flb, _) = _anchor_decodes(
+            cfg, locs, l)
+        assert ib[l] - ia[l] == 1
+        lines, _, _ = TPAL.wrap_flip_lines(fa, ca, fb, cb, (ia, ib),
+                                           (fla, flb), cfg.freq_mhz)
+        assert lines.size == 0
+    (fa, ca, ia, fla, _), (_, _, ib, flb, _) = _anchor_decodes(
+        cfg, (-5e-5, 5e-5), l)
+    assert TPAL.wrap_flip_lines(fa, ca, fa, ca, (ia, ib), (fla, flb),
+                                cfg.freq_mhz)[0].size == 0
+
+
+def test_batch_wrap_flips_holds_the_hsync_stage(ref, monkeypatch):
+    """chip_smoke.py phase 11's accounting (`_batch_wrap_flips`), driven on
+    the CPU with two CPU decodes of the batch standing for the card's and
+    the CPU's: the hsync stage it runs again agrees, and no line is named
+    a flip.  Where one decode's hsync stage puts every line a pixel off,
+    the phase fails on the stage itself, before any line can pass as a
+    flip."""
+    import chip_smoke as CS
+    cfg = ref['tcfg']
+    cap = torch.from_numpy(ref['cap'].astype(np.float32))
+    bank = TF.make_demod_bank(cfg, np.complex64, device='cpu')
+    runs = {'cuda': (cap, bank), 'cpu': (cap, bank)}
+    args = (torch, np, cfg, runs, ref['rs0'], NBLOCKS, 2, ref['pitch'])
+    got = CS._batch_wrap_flips(*args)
+    assert len(got) == 2
+    for lines, pred, anchored, _detail in got:
+        assert lines.size == 0 and pred.size == 0 and anchored.size == 0
+
+    refine, calls = TFU._hsync_refine, []
+
+    def off_by_a_pixel(*a, **kw):
+        lli, llf, bad = refine(*a, **kw)
+        calls.append(1)
+        return (lli + 1 if len(calls) == 1 else lli), llf, bad
+
+    monkeypatch.setattr(TFU, '_hsync_refine', off_by_a_pixel)
+    with pytest.raises(SystemExit):
+        CS._batch_wrap_flips(*args)
