@@ -154,7 +154,7 @@ class _RgbCodecMixin:
         self.codec = codec
         self._prefixes = CODEC.PrefixCopies()
         self._decode_ex = None
-        self.stats = {'t_feed': 0.0, 't_collect': 0.0, 'windows': 0}
+        self.stats = {'t_feed': 0.0, 'windows': 0}
         if codec:
             self.stats.update(rgb_decode_fallback=0, rgb_decode_native=0,
                               rgb_decode_numpy=0, rgb_topups=0,
@@ -324,10 +324,8 @@ class NTSCCombBatch(_RgbCodecMixin):
     def collect(self, handle) -> Tuple[List[np.ndarray], List[np.ndarray]]:
         if handle is None:
             return [], []
-        t0 = time.perf_counter()
         rgb, data = self._receive(handle)
         words = data['words'].astype(np.uint16)
-        self.stats['t_collect'] += time.perf_counter() - t0
         return rgb, list(words)
 
 
@@ -416,9 +414,7 @@ class PALCombBatch(_RgbCodecMixin):
     def collect(self, handle) -> Tuple[List[np.ndarray], list]:
         if handle is None:
             return [], []
-        t0 = time.perf_counter()
         rgb, _ = self._receive(handle)
-        self.stats['t_collect'] += time.perf_counter() - t0
         return rgb, [None] * len(rgb)
 
     def flush(self) -> Optional[np.ndarray]:

@@ -19,14 +19,16 @@ ld_decode_tpu/io/loaders.py (the port imports nothing of the JAX package).
 from __future__ import annotations
 
 import os
-import time
 from typing import Optional
 
 import numpy as np
 
+from ld_decode_tpu_torch.utils.spans import span
+
 _native = None
-# .lds unpacks done by each route and the seconds they took, for callers
-# that must know which route ran and what it cost
+# .lds unpacks done by each route and the seconds they took (the
+# `load.unpack` span's readings), for callers that must know which route
+# ran and what it cost
 unpack_calls = {'native': 0, 'numpy': 0}
 unpack_seconds = {'native': 0.0, 'numpy': 0.0}
 
@@ -54,17 +56,23 @@ def set_native(enabled: bool):
     _native = None if enabled else False
 
 
+def _read(infile, start: int, nbytes: int) -> bytes:
+    """The bytes [start, start + nbytes) of the file, or fewer at its end:
+    the `load.read` span of every loader."""
+    with span('load.read'):
+        infile.seek(start)
+        return infile.read(nbytes)
+
+
 def load_u8(infile, sample: int, readlen: int) -> Optional[np.ndarray]:
-    infile.seek(sample)
-    buf = infile.read(readlen)
+    buf = _read(infile, sample, readlen)
     if len(buf) < readlen:
         return None
     return np.frombuffer(buf, np.uint8)
 
 
 def load_s16(infile, sample: int, readlen: int) -> Optional[np.ndarray]:
-    infile.seek(sample * 2)
-    buf = infile.read(readlen * 2)
+    buf = _read(infile, sample * 2, readlen * 2)
     if len(buf) < readlen * 2:
         return None
     return np.frombuffer(buf, '<i2')
@@ -74,30 +82,29 @@ def unpack_data_4_40(raw: np.ndarray, readlen: int,
                      offset: int) -> np.ndarray:
     """5 bytes -> 4x 10-bit samples (bit layout per lddutils.py:178-191)."""
     nat = _try_native()
-    t0 = time.perf_counter()
     route = 'native' if nat else 'numpy'
-    if nat:
-        out = nat.unpack_4_40(raw, readlen, offset)
-    else:
-        groups = len(raw) // 5
-        b = raw[:groups * 5].reshape(groups, 5).astype(np.uint16)
-        out = np.empty((groups, 4), dtype=np.uint16)
-        out[:, 0] = (b[:, 0] << 2) | (b[:, 1] >> 6)
-        out[:, 1] = ((b[:, 1] & 0x3f) << 4) | (b[:, 2] >> 4)
-        out[:, 2] = ((b[:, 2] & 0x0f) << 6) | (b[:, 3] >> 2)
-        out[:, 3] = ((b[:, 3] & 0x03) << 8) | b[:, 4]
-        out = out.reshape(-1)[offset:offset + readlen]
+    with span('load.unpack') as sp:
+        if nat:
+            out = nat.unpack_4_40(raw, readlen, offset)
+        else:
+            groups = len(raw) // 5
+            b = raw[:groups * 5].reshape(groups, 5).astype(np.uint16)
+            out = np.empty((groups, 4), dtype=np.uint16)
+            out[:, 0] = (b[:, 0] << 2) | (b[:, 1] >> 6)
+            out[:, 1] = ((b[:, 1] & 0x3f) << 4) | (b[:, 2] >> 4)
+            out[:, 2] = ((b[:, 2] & 0x0f) << 6) | (b[:, 3] >> 2)
+            out[:, 3] = ((b[:, 3] & 0x03) << 8) | b[:, 4]
+            out = out.reshape(-1)[offset:offset + readlen]
     unpack_calls[route] += 1
-    unpack_seconds[route] += time.perf_counter() - t0
+    unpack_seconds[route] += sp.seconds
     return out
 
 
 def load_packed_4_40(infile, sample: int, readlen: int) -> Optional[np.ndarray]:
     start = (sample // 4) * 5
     offset = sample % 4
-    infile.seek(start)
     needed = ((readlen + offset + 3) // 4) * 5 + 5
-    buf = infile.read(needed)
+    buf = _read(infile, start, needed)
     raw = np.frombuffer(buf, np.uint8)
     if (len(raw) // 5) * 4 < readlen + offset:
         return None
@@ -121,9 +128,8 @@ def load_packed_3_32(infile, sample: int, readlen: int) -> Optional[np.ndarray]:
     """3x10-bit in each LE uint32 (reference lddutils.py:150-173)."""
     start = (sample // 3) * 4
     offset = sample % 3
-    infile.seek(start)
     needed = int(np.ceil(readlen * 3 / 4) * 4) + 8
-    buf = infile.read(needed)
+    buf = _read(infile, start, needed)
     words = np.frombuffer(buf, '<u4')
     if len(words) * 3 < readlen + offset:
         return None

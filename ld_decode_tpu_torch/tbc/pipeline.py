@@ -46,7 +46,6 @@ from __future__ import annotations
 
 import concurrent.futures
 import os
-import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Union
@@ -61,6 +60,7 @@ from ld_decode_tpu_torch.tbc import fused as FU
 from ld_decode_tpu_torch.tbc.field import FieldDecoder, FieldResult
 from ld_decode_tpu_torch.utils.device import to_host_async
 from ld_decode_tpu_torch.utils.graphs import GraphCache, as_cache
+from ld_decode_tpu_torch.utils.spans import span
 
 
 @dataclass
@@ -184,8 +184,7 @@ class FieldPrefetcher:
         self.stats = {'refills': 0, 'hits': 0, 'flush_sample': 0,
                       'flush_mtf': 0, 'flush_audio': 0, 'seq_fallback': 0,
                       'seq_decoded': 0,
-                      'batches': 0, 'flight_flush': 0, 'skips': 0,
-                      'cache_hits': 0, 'pic_raw_fallback': 0,
+                      'batches': 0, 'flight_flush': 0, 'pic_raw_fallback': 0,
                       'pic_decode_native': 0, 'pic_decode_numpy': 0,
                       'pic_topups': 0, 'shipped_u16': 0, 'raw_u16': 0,
                       't_dispatch': 0.0, 't_fetch': 0.0, 't_unpack': 0.0}
@@ -237,48 +236,50 @@ class FieldPrefetcher:
 
     def _dispatch(self, start0, offset0, mtf_level: float):
         """Queue one batch; start0/offset0 are device scalars (host values
-        at a refill, the previous batch's return afterwards)."""
-        t0 = time.perf_counter()
-        dec = self.decoder
-        n_audio1 = dec.nblocks * dec.bank.a_stage1_keep \
-            if dec.bank.has_audio else 0
-        if self._mtf_dev[0] != mtf_level:
-            self._mtf_dev = (mtf_level, torch.full(
-                (), mtf_level, dtype=torch.float32, device=dec.device))
-        if self._vlen_dev is None:
-            self._vlen_dev = torch.full((), self.valid_len,
-                                        dtype=torch.int32, device=dec.device)
-        codec = self.fetch_picture and self._use_codec()
-        # the static arguments; the capture is keyed as a tensor read
-        key = ('field_pipeline_batch', id(dec.bank), dec.cfg, dec.nblocks,
-               n_audio1, self.batch, self.field_pitch, dec.colorlevel,
-               dec.colorphase, codec)
+        at a refill, the previous batch's return afterwards).  The
+        `prefetch.dispatch` span, which `stats['t_dispatch']` sums."""
+        with span('prefetch.dispatch') as sp:
+            dec = self.decoder
+            n_audio1 = dec.nblocks * dec.bank.a_stage1_keep \
+                if dec.bank.has_audio else 0
+            if self._mtf_dev[0] != mtf_level:
+                self._mtf_dev = (mtf_level, torch.full(
+                    (), mtf_level, dtype=torch.float32, device=dec.device))
+            if self._vlen_dev is None:
+                self._vlen_dev = torch.full((), self.valid_len,
+                                            dtype=torch.int32,
+                                            device=dec.device)
+            codec = self.fetch_picture and self._use_codec()
+            # the static arguments; the capture is keyed as a tensor read
+            key = ('field_pipeline_batch', id(dec.bank), dec.cfg, dec.nblocks,
+                   n_audio1, self.batch, self.field_pitch, dec.colorlevel,
+                   dec.colorphase, codec)
 
-        def call(s0, o0, mtf, vlen):
-            return FU.field_pipeline_batch(
-                self.capture, s0, o0, mtf, dec.bank, dec.cfg, dec.nblocks,
-                n_audio1, self.batch, self.field_pitch,
-                colorlevel=dec.colorlevel, colorphase=dec.colorphase,
-                valid_len=vlen, codec=codec)
+            def call(s0, o0, mtf, vlen):
+                return FU.field_pipeline_batch(
+                    self.capture, s0, o0, mtf, dec.bank, dec.cfg, dec.nblocks,
+                    n_audio1, self.batch, self.field_pitch,
+                    colorlevel=dec.colorlevel, colorphase=dec.colorphase,
+                    valid_len=vlen, codec=codec)
 
-        out, nso, noo = self.graphs(
-            key, call, (start0, offset0, self._mtf_dev[1], self._vlen_dev),
-            reads=(self.capture,))
-        if self.graphs.aliased:
-            # replayed, the outputs are the graph's static tensors, which
-            # the next replay overwrites.  The host copies queued next are
-            # stream-ordered, and the chained scalars are read only by the
-            # next dispatch's copy into its static inputs; the pictures
-            # and dense buffers that stay on the device outlive the next
-            # replay, so they are cloned
-            if codec or not self.fetch_picture:
-                for k in ('picture', 'dense', 'dense_q'):
-                    if k in out:
-                        out[k] = out[k].clone()
-        self._flight.append(_InFlight(out, nso, noo, mtf_level,
-                                      self.fetch_picture, self._prefixes))
+            out, nso, noo = self.graphs(
+                key, call, (start0, offset0, self._mtf_dev[1], self._vlen_dev),
+                reads=(self.capture,))
+            if self.graphs.aliased:
+                # replayed, the outputs are the graph's static tensors, which
+                # the next replay overwrites.  The host copies queued next are
+                # stream-ordered, and the chained scalars are read only by the
+                # next dispatch's copy into its static inputs; the pictures
+                # and dense buffers that stay on the device outlive the next
+                # replay, so they are cloned
+                if codec or not self.fetch_picture:
+                    for k in ('picture', 'dense', 'dense_q'):
+                        if k in out:
+                            out[k] = out[k].clone()
+            self._flight.append(_InFlight(out, nso, noo, mtf_level,
+                                          self.fetch_picture, self._prefixes))
         self.stats['batches'] += 1
-        self.stats['t_dispatch'] += time.perf_counter() - t0
+        self.stats['t_dispatch'] += sp.seconds
 
     def _schedule(self, mtf_level: float):
         while self._flight and len(self._flight) < self.DEPTH:
@@ -286,62 +287,65 @@ class FieldPrefetcher:
             self._dispatch(last.next_start0, last.next_offset0, mtf_level)
 
     def _fetch_entries(self) -> List[_Entry]:
-        """Wait for the front in-flight batch and unpack it."""
-        cfg = self.decoder.cfg
+        """Wait for the front in-flight batch (the `prefetch.fetch` span,
+        which `stats['t_fetch']` sums) and unpack it (`prefetch.unpack`,
+        `stats['t_unpack']`)."""
         fl = self._flight.popleft()
-        t0 = time.perf_counter()
-        data = fl.numpy()
-        t1 = time.perf_counter()
-
-        nlines = FU.max_nlines(cfg)
-        W = cfg.sys.outlinelen
-        out: List[_Entry] = []
-        pic_jobs = []
-        prev_rs = -1
-        clean = True
-        for b in range(self.batch):
-            valid, istop, lc, nfo, npk, nvs, rs, wf = (
-                int(x) for x in data['meta_i'][b])
-            if not valid or rs <= prev_rs:
-                # invalid field, or EOF window clamp: keep the prefix;
-                # anything chained after it is unreliable
-                clean = False
-                break
-            prev_rs = rs
-            rs_abs = rs + self.base
-            linelocs = (data['linelocs_i'][b].astype(np.float64)
-                        + data['linelocs_f'][b].astype(np.float64))[:nlines]
-            linecode = {}
-            for i, l in enumerate(cfg.sys.philips_codelines):
-                linecode[l] = ([int(x) for x in data['philips_nib'][b, i]]
-                               if data['philips_ok'][b, i] else None)
-            r = FieldResult(
-                True, nfo, istop=bool(istop), linecount=lc, tbcstart=nfo,
-                peak_count=npk, vsync_count=nvs, linelocs=linelocs,
-                burstlevel=data['burstlevel'][b].astype(np.float64)[:nlines],
-                vbi=interpret_philips(linecode), linecode=linecode,
-                readsample=rs_abs, white_flag=bool(wf))
-            if self.decoder.bank.has_audio:
-                nout = (int(data['audio_count'][b]) - 1) * 2
-                r.dsaudio = data['audio'][b][:nout]
-            r.audio_next_offset = float(data['audio_next_offset'][b])
+        with span('prefetch.fetch') as sp:
+            data = fl.numpy()
+        self.stats['t_fetch'] += sp.seconds
+        with span('prefetch.unpack') as sp:
+            cfg = self.decoder.cfg
+            nlines = FU.max_nlines(cfg)
+            W = cfg.sys.outlinelen
+            out: List[_Entry] = []
+            pic_jobs = []
+            prev_rs = -1
+            clean = True
+            for b in range(self.batch):
+                valid, istop, lc, nfo, npk, nvs, rs, wf = (
+                    int(x) for x in data['meta_i'][b])
+                if not valid or rs <= prev_rs:
+                    # invalid field, or EOF window clamp: keep the prefix;
+                    # anything chained after it is unreliable
+                    clean = False
+                    break
+                prev_rs = rs
+                rs_abs = rs + self.base
+                linelocs = (data['linelocs_i'][b].astype(np.float64)
+                            + data['linelocs_f'][b].astype(np.float64)
+                            )[:nlines]
+                linecode = {}
+                for i, l in enumerate(cfg.sys.philips_codelines):
+                    linecode[l] = ([int(x) for x in data['philips_nib'][b, i]]
+                                   if data['philips_ok'][b, i] else None)
+                r = FieldResult(
+                    True, nfo, istop=bool(istop), linecount=lc, tbcstart=nfo,
+                    peak_count=npk, vsync_count=nvs, linelocs=linelocs,
+                    burstlevel=data['burstlevel'][b].astype(
+                        np.float64)[:nlines],
+                    vbi=interpret_philips(linecode), linecode=linecode,
+                    readsample=rs_abs, white_flag=bool(wf))
+                if self.decoder.bank.has_audio:
+                    nout = (int(data['audio_count'][b]) - 1) * 2
+                    r.dsaudio = data['audio'][b][:nout]
+                r.audio_next_offset = float(data['audio_next_offset'][b])
+                if fl.codec:
+                    pic_jobs.append((b, r, lc))
+                elif fl.picture_dev is None:
+                    r.dspicture = data['picture'][b].reshape(-1)[
+                        :lc * W].astype(np.uint16)
+                else:
+                    r.dev_picture = (fl.picture_dev, b)
+                out.append(_Entry(rs_abs, r, fl.mtf_level,
+                                  float(data['meta_f'][b])))
+            if not clean and self._flight:
+                # downstream in-flight batches chained off garbage state
+                self._flight.clear()
+                self.stats['flight_flush'] += 1
             if fl.codec:
-                pic_jobs.append((b, r, lc))
-            elif fl.picture_dev is None:
-                r.dspicture = data['picture'][b].reshape(-1)[:lc * W].astype(
-                    np.uint16)
-            else:
-                r.dev_picture = (fl.picture_dev, b)
-            out.append(_Entry(rs_abs, r, fl.mtf_level,
-                              float(data['meta_f'][b])))
-        if not clean and self._flight:
-            # downstream in-flight batches chained off garbage state
-            self._flight.clear()
-            self.stats['flight_flush'] += 1
-        if fl.codec:
-            self._decode_pictures(fl, data, pic_jobs)
-        self.stats['t_fetch'] += t1 - t0
-        self.stats['t_unpack'] += time.perf_counter() - t1
+                self._decode_pictures(fl, data, pic_jobs)
+        self.stats['t_unpack'] += sp.seconds
         return out
 
     def _decode_pictures(self, fl: _InFlight, data, jobs):
@@ -408,7 +412,6 @@ class FieldPrefetcher:
             if k is not None:
                 e = self.queue[k]
                 if self._matches(e, mtf_level, audio_offset):
-                    self.stats['skips'] += k
                     for skipped in self.queue[:k]:
                         self._recent.append(skipped)
                     del self.queue[:k + 1]
@@ -427,7 +430,6 @@ class FieldPrefetcher:
                 if kc is not None:
                     e = self._recent[kc]
                     if self._matches(e, mtf_level, audio_offset):
-                        self.stats['cache_hits'] += 1
                         return e.result
                 self.stats['flush_sample'] += 1
             self.flush()
@@ -442,34 +444,38 @@ class FieldPrefetcher:
     # ------------------------------------------------------------------
 
     def _refill(self, sample: int, mtf_level: float, audio_offset: float):
-        self.stats['refills'] += 1
-        dec = self.decoder
-        cfg = dec.cfg
-        n_stream = D.stream_len(cfg, dec.nblocks)
-        smax = self.valid_len - n_stream + cfg.blockcut
-        s0 = max(int(sample) - self.base, cfg.blockcut)
-        if s0 > smax:
-            return
-        self.flush()
-        dev = dec.device
-        self._dispatch(torch.full((), s0, dtype=torch.int32, device=dev),
-                       torch.full((), audio_offset, dtype=torch.float32,
-                                  device=dev), mtf_level)
-        self._schedule(mtf_level)
-        self.queue.extend(self._fetch_entries())
-        self._schedule(mtf_level)
+        """Restart the chain at `sample`: the `prefetch.refill` span."""
+        with span('prefetch.refill'):
+            self.stats['refills'] += 1
+            dec = self.decoder
+            cfg = dec.cfg
+            n_stream = D.stream_len(cfg, dec.nblocks)
+            smax = self.valid_len - n_stream + cfg.blockcut
+            s0 = max(int(sample) - self.base, cfg.blockcut)
+            if s0 > smax:
+                return
+            self.flush()
+            dev = dec.device
+            self._dispatch(torch.full((), s0, dtype=torch.int32, device=dev),
+                           torch.full((), audio_offset, dtype=torch.float32,
+                                      device=dev), mtf_level)
+            self._schedule(mtf_level)
+            self.queue.extend(self._fetch_entries())
+            self._schedule(mtf_level)
 
-        if not self.queue:
-            # batch head failed: decode one field sequentially (handles
-            # resync/invalid paths exactly)
-            self._flight.clear()
-            self.stats['seq_fallback'] += 1
-            r = dec.process_resident(self.capture, int(sample) - self.base,
-                                     mtf_level, audio_offset)
-            if r is not None:
-                # a valid sequential field ran the device finish
-                self.stats['seq_decoded'] += int(r.valid)
-                if r.readsample >= 0:
-                    r.readsample += self.base
-                self.queue.append(_Entry(int(sample), r, mtf_level,
-                                         audio_offset))
+            if not self.queue:
+                # batch head failed: decode one field sequentially (handles
+                # resync/invalid paths exactly)
+                self._flight.clear()
+                self.stats['seq_fallback'] += 1
+                with span('prefetch.seq_fallback'):
+                    r = dec.process_resident(self.capture,
+                                             int(sample) - self.base,
+                                             mtf_level, audio_offset)
+                if r is not None:
+                    # a valid sequential field ran the device finish
+                    self.stats['seq_decoded'] += int(r.valid)
+                    if r.readsample >= 0:
+                        r.readsample += self.base
+                    self.queue.append(_Entry(int(sample), r, mtf_level,
+                                             audio_offset))

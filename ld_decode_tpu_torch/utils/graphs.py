@@ -59,6 +59,9 @@ bank), so it holds the API_KEYS keys called last, not every key since
 the process began.  A caller that passes its own GraphCache gets the
 static outputs and clones what it keeps.
 
+A key's warm-up and its capture are each a `graphs.build` span
+(utils/spans.py); a replay is none.
+
 A capture that fails raises: on the card nothing falls back to eager.  On
 the CPU the cache runs the function eagerly (mode 'eager').  Mode
 'emulate', which only a caller can ask for and only off the card, keeps
@@ -79,6 +82,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from ld_decode_tpu_torch.utils.spans import span
 
 MODES = ('graph', 'eager', 'emulate')
 
@@ -264,8 +269,10 @@ class GraphCache:
             if full not in self._seen:
                 self._seen.add(full)
                 self.counts['eager_warmups'] += 1
-                return self._warm_up(fn, inputs)
-            g = self._capture(full, fn, inputs, generators)
+                with span('graphs.build'):
+                    return self._warm_up(fn, inputs)
+            with span('graphs.build'):
+                g = self._capture(full, fn, inputs, generators)
             # emulated, the capture ran fn: that run is this call's
             run = self.mode == 'graph'
         else:

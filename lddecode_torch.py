@@ -81,7 +81,9 @@ def parse_args(argv=None):
     p.add_argument('-q', '--quiet', action='store_true',
                    help='warnings and errors only')
     p.add_argument('-d', '--debug', action='store_true',
-                   help='debug output (per-frame progress percentage)')
+                   help='debug output (per-frame progress percentage, and '
+                        'at exit the time spent in each span of the '
+                        'decode)')
     return p.parse_args(argv)
 
 
@@ -89,6 +91,24 @@ def main(argv=None):
     args = parse_args(argv)
     from ld_decode_tpu_torch.utils import log
     log.configure_from_flags(quiet=args.quiet, debug=args.debug)
+    try:
+        return decode(args)
+    finally:
+        log_spans()
+
+
+def log_spans():
+    """Debug: each span's count, total and self seconds
+    (utils/spans.py), slowest first."""
+    from ld_decode_tpu_torch.utils import log, spans
+    for name, (n, total, own) in sorted(spans.totals().items(),
+                                        key=lambda kv: -kv[1][1]):
+        log.debug(f'span {name}: {n} calls, {total:.3f} s total, '
+                  f'{own:.3f} s self')
+
+
+def decode(args):
+    from ld_decode_tpu_torch.utils import log
     if args.pal and args.ntsc:
         log.critical('Can only be PAL or NTSC')
         return 1

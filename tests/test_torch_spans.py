@@ -1,0 +1,282 @@
+"""PyTorch port: the spans (utils/spans.py) and the decode's spans at its
+layer boundaries.
+
+Off (no torch profiler running), a span keeps its name's count, total and
+self time, and nothing else.  Under torch.profiler it also opens a
+record_function and keeps a record on the profiler's own clock.  A
+segmented decode (the smallest segment over a small .lds file, as in
+tests/test_torch_segmented.py) gives each swap one `segment.swap` with the
+read, the unpack, the conversion and the copy inside it, and the decode's
+timers are readings of their spans.  The card test checks the shared clock
+against the device's own copy of a swap."""
+
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from ld_decode_tpu_torch.io import loaders as TL
+from ld_decode_tpu_torch.models import encode as TE
+from ld_decode_tpu_torch.ops import filters as TF
+from ld_decode_tpu_torch.tbc import framer as TFR
+from ld_decode_tpu_torch.utils import spans as S
+from ld_decode_tpu_torch.utils.params import DecoderConfig
+from ld_decode_tpu_torch.utils.spans import span
+
+torch.set_num_threads(2)
+
+CPU = [torch.profiler.ProfilerActivity.CPU]
+START = 33046
+SWAP_PARTS = ['load.read', 'load.unpack', 'segment.convert', 'segment.copy']
+
+
+@pytest.fixture(autouse=True)
+def fresh():
+    S.reset()
+    yield
+    S.reset()
+
+
+def _walls(recs):
+    """Each record's wall time and the wall time of its direct children,
+    ns."""
+    wall = [b - a for _, a, b, _, _ in recs]
+    child = [0] * len(recs)
+    for k, r in enumerate(recs):
+        if r[3] >= 0:
+            child[r[3]] += wall[k]
+    return wall, child
+
+
+def _totals_from(recs):
+    out = {}
+    wall, child = _walls(recs)
+    for k, r in enumerate(recs):
+        n, tot, own = out.get(r[0], (0, 0, 0))
+        out[r[0]] = (n + 1, tot + wall[k], own + wall[k] - child[k])
+    return out
+
+
+def test_nesting_self_time_parents_and_frames():
+    """Records nest as the spans did, a frame's number is shared by what it
+    holds (a frame inside a frame keeps it), and the totals are the sums
+    of the records: total the wall time, self the wall time less the
+    direct children."""
+    with torch.profiler.profile(activities=CPU):
+        with span('frame'):
+            with span('a'):
+                time.sleep(0.002)
+                with span('b'):
+                    time.sleep(0.003)
+            with span('c'):
+                time.sleep(0.001)
+        with span('frame'):
+            with span('frame'):
+                with span('a'):
+                    pass
+        with span('outside'):
+            pass
+    recs = S.records()
+    assert [r[0] for r in recs] == ['frame', 'a', 'b', 'c', 'frame', 'frame',
+                                    'a', 'outside']
+    assert [r[3] for r in recs] == [-1, 0, 1, 0, -1, 4, 5, -1]
+    assert [r[4] for r in recs] == [0, 0, 0, 0, 1, 1, 1, -1]
+    for name, a, b, parent, _ in recs:
+        assert a <= b
+        if parent >= 0:
+            assert recs[parent][1] <= a and b <= recs[parent][2]
+    assert recs[2][2] - recs[2][1] >= 3e6
+    assert recs[1][2] - recs[1][1] >= 5e6
+    tot = S.totals()
+    assert set(tot) == {'frame', 'a', 'b', 'c', 'outside'}
+    for name, (n, total, own) in _totals_from(recs).items():
+        assert tot[name][0] == n
+        assert tot[name][1] == pytest.approx(total * 1e-9, rel=1e-12)
+        assert tot[name][2] == pytest.approx(own * 1e-9, rel=1e-12)
+    # 'b' has no child; 'a' holds 'b'
+    assert tot['b'][2] == tot['b'][1]
+    assert tot['a'][2] == pytest.approx(tot['a'][1] - tot['b'][1],
+                                        rel=1e-12)
+
+
+def test_off_keeps_totals_only(monkeypatch):
+    """Without a profiler a span opens no record_function and keeps no
+    record, and calls no operator; its totals are kept all the same."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    import torch.autograd.profiler as AP
+
+    def refused(name):
+        raise AssertionError(f'record_function({name!r}) with no profiler')
+
+    monkeypatch.setattr(AP, 'record_function', refused)
+    ops = []
+
+    class Seen(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    with Seen():
+        with span('outer') as outer:
+            with span('inner') as inner:
+                time.sleep(0.001)
+    assert ops == []
+    assert S.records() == []
+    tot = S.totals()
+    assert tot['outer'][0] == tot['inner'][0] == 1
+    assert inner.seconds >= 1e-3 and outer.seconds >= inner.seconds
+    assert tot['inner'][1] == inner.seconds
+    assert tot['outer'][2] == pytest.approx(outer.seconds - inner.seconds,
+                                            rel=1e-12)
+
+
+def test_on_each_span_is_a_record_and_an_event_on_one_clock():
+    """Under torch.profiler every span is one record and one event of the
+    profiler's, and the record starts and ends within 0.5 ms of the
+    event: the records are on the trace's clock."""
+    names = [f'span{k}' for k in range(12)]
+    with torch.profiler.profile(activities=CPU) as prof:
+        for k, name in enumerate(names):
+            with span(name):
+                x = torch.ones(64) * k
+                if k % 3 == 0:
+                    time.sleep(0.002)
+                    with span(name + '.inner'):
+                        x.add_(1)
+    recs = S.records()
+    events = {}
+    for e in prof.profiler.kineto_results.events():
+        events.setdefault(e.name(), []).append(e)
+    assert len(recs) == len(names) + 4
+    for name, a, b, _, _ in recs:
+        assert len(events.get(name, [])) == 1, name
+        e = events[name][0]
+        assert abs(a - e.start_ns()) < 0.5e6, name
+        assert abs(b - e.end_ns()) < 0.5e6, name
+
+
+def test_the_ring_keeps_the_last_records():
+    """Past RING records the oldest go, a span that outlived its place in
+    the ring among them; a record whose parent went says -1.  The totals
+    keep every span."""
+    with torch.profiler.profile(activities=CPU):
+        with span('outer'):
+            for _ in range(S.RING + 5):
+                with span('x'):
+                    pass
+    recs = S.records()
+    assert len(recs) == S.RING
+    assert all(r[0] == 'x' and r[3] == -1 for r in recs)
+    assert S.totals()['x'][0] == S.RING + 5
+    assert S.totals()['outer'][0] == 1
+
+
+# ---------------------------------------------------------------------------
+# the decode
+
+
+@pytest.fixture(scope='module')
+def segmented(tmp_path_factory):
+    """A segmented decode of 8 frames of a 12-frame .lds file at the
+    smallest segment (8 frames cross a swap), under torch.profiler: the
+    records, the totals, the prefetcher's stats, the unpack seconds it
+    added and the number of segment loads."""
+    cfg = DecoderConfig(system='NTSC', freq_mhz=40.0)
+    samples = TE.encode_frames(cfg, 12, TE.EncodeSpec(pattern='ramp',
+                                                      cav_start_frame=900))
+    path = tmp_path_factory.mktemp('spans') / 'cap.lds'
+    path.write_bytes(TL.pack_data_4_40(samples).tobytes())
+    bank = TF.make_demod_bank(cfg, device='cpu')
+    fr = TFR.Framer(cfg, bank, TL.loader_for_path(str(path)), batch=2,
+                    segment_samples=1, device='cpu')
+    pf = fr.prefetcher
+    loads = []
+    set_capture = pf.set_capture
+
+    def counted(*a, **k):
+        loads.append(a[1])
+        return set_capture(*a, **k)
+
+    pf.set_capture = counted
+    route = TL.unpack_route()
+    S.reset()
+    before = TL.unpack_seconds[route]
+    s, frames = START, 0
+    with torch.profiler.profile(activities=CPU), open(path, 'rb') as fd:
+        for i in range(8):
+            rv = fr.readframe(fd, s, i == 0)
+            assert rv[0] is not None
+            s, frames = rv[2], frames + 1
+    out = dict(records=S.records(), totals=S.totals(), stats=dict(pf.stats),
+               unpack=TL.unpack_seconds[route] - before, loads=len(loads),
+               frames=frames)
+    S.reset()
+    return out
+
+
+def test_each_swap_is_one_span_with_its_parts(segmented):
+    recs = segmented['records']
+    swaps = [k for k, r in enumerate(recs) if r[0] == 'segment.swap']
+    assert len(swaps) == segmented['loads'] >= 2
+    for k in swaps:
+        assert recs[recs[k][3]][0] == 'frame'
+        parts = sorted(r[0] for r in recs if r[3] == k)
+        assert parts == SWAP_PARTS
+    # every span of the decode lies in one of its frames, numbered in turn
+    assert sorted({r[4] for r in recs}) == list(range(segmented['frames']))
+    names = {r[0] for r in recs}
+    assert {'frame', 'frame.weave', 'prefetch.refill', 'prefetch.dispatch',
+            'prefetch.fetch', 'prefetch.unpack'} <= names
+    for name in ('prefetch.fetch', 'prefetch.unpack', 'prefetch.dispatch'):
+        assert {recs[r[3]][0] for r in recs if r[0] == name} \
+            <= {'frame', 'prefetch.refill'}
+
+
+def test_the_timers_read_their_spans(segmented):
+    """stats' t_dispatch, t_fetch and t_unpack and the loader's
+    unpack_seconds are the totals of the spans that bracket their code."""
+    st, tot = segmented['stats'], segmented['totals']
+    assert st['batches'] == tot['prefetch.dispatch'][0] > 0
+    for key, name in (('t_dispatch', 'prefetch.dispatch'),
+                      ('t_fetch', 'prefetch.fetch'),
+                      ('t_unpack', 'prefetch.unpack')):
+        assert st[key] == pytest.approx(tot[name][1], rel=1e-9), key
+    assert segmented['unpack'] == pytest.approx(tot['load.unpack'][1],
+                                                rel=1e-9)
+    assert st['refills'] == tot['prefetch.refill'][0]
+    assert 'skips' not in st and 'cache_hits' not in st
+
+
+# ---------------------------------------------------------------------------
+# the card
+
+
+@pytest.mark.cuda
+def test_card_a_swaps_copy_starts_inside_its_copy_span():
+    """On the card: the pageable copy of a segment (256 MiB of float32)
+    starts on the device inside the host's `segment.copy` record, and the
+    spans allocate nothing on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    n = 64 << 20
+    out = torch.empty(n, dtype=torch.float32, device='cuda')
+    samples = np.arange(n, dtype=np.uint16)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    acts = CPU + [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            TFR.to_device_capture(samples, 'cuda', out=out)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == held
+    copies = [(a, b) for name, a, b, _, _ in S.records()
+              if name == 'segment.copy']
+    from torch.autograd import DeviceType
+    memcpy = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA
+              and 'Memcpy HtoD' in e.name()
+              and e.end_ns() - e.start_ns() > 10e6]
+    assert len(copies) == 3 and len(memcpy) >= 3
+    for e in memcpy:
+        assert any(a <= e.start_ns() <= b for a, b in copies), e.name()
