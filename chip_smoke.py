@@ -204,6 +204,17 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      ways, K1's launches equal, the warm-ups, captures, replays and
      capture seconds, host ms a call (the weave's a frame) both ways, and
      decode_vhs's MSa/s against real time (28.64).
+ 30. K4 (the capture widening, csrc/capture_widen.cu) through
+     to_device_capture: for each loader's sample type (.lds uint16,
+     .r16/.r30 int16, .raw uint8) at the segmented decode's shape (2^28
+     samples into one reused buffer, full and K4_TAIL short), bit-equal to
+     its plain version, the tail zeroed, its schedule's launches counted
+     and no card memory allocated, even for a moment; at uint16, its device
+     time against its bound, its launches' host time, the copy of the
+     samples as they are, the host route it replaced (the float32
+     conversion and its 4-byte copy) and PyTorch's cast-copy over the same
+     ranges.  Phases 4 and 10 count its launches on the whole capture,
+     phase 27 on every swap of the segmented file decodes.
 Every decode and chain phase runs with the default graphs on.
 The line before the last is the kernel JSON; the last line is the result.
 """
@@ -243,6 +254,14 @@ AUDIO_TICKS = 16
 # K3's dependent chain a step: FMUL -> {FMNMX, FFMA} -> FMNMX
 # (csrc/cx_envelope.cu), each ~4 cycles on Hopper's FP32 pipes
 K3_CHAIN_OPS, K3_OP_CYCLES = 3, 4
+# K4 at the main path's shape: the cells' 512 MB segment of .lds samples,
+# and K4_TAIL short of it (the tail zeroed); the loaders' sample types
+K4_SAMPLES, K4_TAIL, K4_REPS = 1 << 28, 12345, 15
+K4_TYPES = (('.lds', 'uint16'), ('.r16/.r30', 'int16'), ('.raw', 'uint8'))
+K4_METHOD = ('CUDA events around one widening (its launches and the '
+             'tail memset) after a fresh stage of the samples; 1.6 GB of '
+             'traffic against the 50 MB L2, so a cold read; median of '
+             f'{K4_REPS}')
 
 
 def fail(msg: str):
@@ -277,14 +296,16 @@ def build_phase():
     from ld_decode_tpu_torch.audio import cuda_cx as CC
     from ld_decode_tpu_torch.ops import cuda_gather as CG
     from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    from ld_decode_tpu_torch.tbc import cuda_widen as CW
     from ld_decode_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
         for f in [ex.submit(CR._lib), ex.submit(CG._lib),
-                  ex.submit(CC._lib)]:
+                  ex.submit(CC._lib), ex.submit(CW._lib)]:
             f.result()
-    print(f'all three kernels loaded in {time.perf_counter() - t0:.2f} s')
-    for name in ('resample_lines', 'take_along_axis', 'cx_envelope'):
+    print(f'all four kernels loaded in {time.perf_counter() - t0:.2f} s')
+    for name in ('resample_lines', 'take_along_axis', 'cx_envelope',
+                 'capture_widen'):
         info = cuda_build.BUILDS[name]
         print(f'{name}.cu: nvcc {info.seconds:.2f} s -> {info.path}')
         for line in info.log.splitlines():
@@ -650,6 +671,7 @@ def main_path_phase(torch, np, system='NTSC'):
     from ld_decode_tpu_torch.utils.params import DecoderConfig
     from ld_decode_tpu_torch.ops import filters as F
     from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    from ld_decode_tpu_torch.tbc import cuda_widen as CW
     from ld_decode_tpu_torch.tbc import framer as FR
 
     cfg = DecoderConfig(system=system, freq_mhz=40.0)
@@ -663,8 +685,17 @@ def main_path_phase(torch, np, system='NTSC'):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     CR.resample_lines_batch.launches = 0
+    CW.widen.launches, routes = 0, dict(CW.routes)
     fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=p['nblocks'],
                    device='cuda')
+    k4 = CW.widen.launches
+    k4_want = len(CW.widen_schedule(cap.shape[0], cap.dtype.itemsize)) - 1
+    print(f'K4 widened the whole capture ({cap.dtype}) on the card: '
+          f'{k4} launches, routes {CW.routes} (before {routes})')
+    if k4 != k4_want or CW.routes != {'card': routes['card'] + 1,
+                                      'host': routes['host']}:
+        fail(f'K4 launches {k4}, expected {k4_want}, one widening on the '
+             f'card')
     t0 = time.perf_counter()
     rv = fr.readframe(None, p['start'], True)
     if rv[0] is None:
@@ -708,7 +739,7 @@ def main_path_phase(torch, np, system='NTSC'):
           f'batches + {per} per sequential field x {st["seq_decoded"]}')
     if launches != expect or launches == 0:
         fail(f'K1 launches {launches}, expected {expect}')
-    return cfg, cap, bank, fr, launches
+    return cfg, cap, bank, fr, launches, k4
 
 
 def parity_phase(torch, np, cfg, bank, fr, title='5 card vs cpu, one batch',
@@ -1707,6 +1738,139 @@ def k3_phase(torch, np):
     return dict(launches=launches, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=None)
+
+
+def _k4_library(torch, CW, out, n: int, last: float):
+    """The same widening by PyTorch's own cast-copy over K4's ranges:
+    out[a:b].copy_ from the uint16 view of the staged samples for every
+    range but the last sample's (its input and output overlap, which
+    copy_ refuses), that sample from the host, then the tail's zeroing."""
+    u = out.view(torch.uint16)
+    b = CW.widen_schedule(n, 2)
+    for lo, hi in zip(b[:-2], b[1:-1]):
+        out[lo:hi].copy_(u[n + lo:n + hi])
+    out[n - 1:n].fill_(last)
+    out[n:].zero_()
+
+
+def k4_phase(torch, np):
+    """K4 through to_device_capture, against its plain version, on the
+    card; then its times at the .lds route's uint16 (module docstring,
+    phase 30).  Returns the kernels line's numbers."""
+    phase('30 K4: the capture widening')
+    from ld_decode_tpu_torch.tbc import cuda_widen as CW
+    from ld_decode_tpu_torch.tbc import framer as FR
+    n = K4_SAMPLES
+    rng = np.random.default_rng(RNG_SEED + 30)
+    out = torch.full((n,), float('nan'), device='cuda')
+    for label, name in K4_TYPES:
+        dt = np.dtype(name)
+        info = np.iinfo(dt)
+        for m in (n, n - K4_TAIL):
+            arr = rng.integers(info.min, info.max + 1, m, dtype=dt)
+            launches, routes = CW.widen.launches, dict(CW.routes)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            FR.to_device_capture(arr, 'cuda', out=out)
+            torch.cuda.synchronize()
+            grew = (torch.cuda.memory_allocated() - held,
+                    torch.cuda.max_memory_allocated() - held)
+            nl = CW.widen.launches - launches
+            want_nl = len(CW.widen_schedule(m, dt.itemsize)) - 1
+            card = CW.routes['card'] - routes['card']
+            want = torch.from_numpy(CW.widen_plain(arr)).cuda()
+            exact = bool(torch.equal(out[:m].view(torch.int32),
+                                     want.view(torch.int32))) \
+                and not bool(out[m:].any())
+            del want
+            print(f'K4 {label} {name}, {m} samples into {n}: bit-equal '
+                  f'{exact}, {nl} launches (schedule {want_nl}), card '
+                  f'widenings {card}, allocated +{grew[0]} B (peak '
+                  f'+{grew[1]} B)')
+            if not exact or nl != want_nl or card != 1 or grew != (0, 0):
+                fail(f'K4 {label} {name} at {m} samples: bit-equal {exact}, '
+                     f'launches {nl} of {want_nl}, card widenings {card}, '
+                     f'allocated +{grew}')
+    launches = len(CW.widen_schedule(n, 2)) - 1
+
+    # times at the .lds route's uint16 (10-bit values)
+    arr = rng.integers(0, 1024, n, dtype=np.uint16)
+    dev_ms, host_ms = [], []
+    for _ in range(K4_REPS):
+        CW.stage(arr, out)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        t0 = time.perf_counter()
+        CW.widen(out, n, 2)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        b.synchronize()
+        dev_ms.append(a.elapsed_time(b))
+    ms = statistics.median(dev_ms)
+    bound_ms, bound_by = _bound(6 * n, 0)
+    stage_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        CW.stage(arr, out)
+        torch.cuda.synchronize()
+        stage_ms.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = CW.widen_plain(arr)
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    host_t, copy4_ms = torch.from_numpy(host), []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.copy_(host_t)
+        torch.cuda.synchronize()
+        copy4_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # PyTorch's cast-copy over the same ranges, on the same staged samples
+    library_ms, lib_note = None, ''
+    want = host_t.cuda()
+    try:
+        lib = []
+        for _ in range(K4_REPS):
+            CW.stage(arr, out)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            _k4_library(torch, CW, out, n, float(arr[-1]))
+            b.record()
+            b.synchronize()
+            lib.append(a.elapsed_time(b))
+        same = bool(torch.equal(out.view(torch.int32), want.view(torch.int32)))
+        library_ms = statistics.median(lib)
+        lib_note = (f'{library_ms:.4f} ms ({min(lib):.4f}-{max(lib):.4f}), '
+                    f'{launches + 1} calls, bit-equal {same}')
+    except RuntimeError as e:
+        lib_note = f'refused: {str(e).splitlines()[0]}'
+    del want
+    print(f'K4 .lds uint16, {n} samples: {ms:.4f} ms on the card '
+          f'({min(dev_ms):.4f}-{max(dev_ms):.4f}; {K4_METHOD}), {launches} '
+          f'launches, their host time {statistics.median(host_ms):.4f} ms; '
+          f'bound {bound_ms:.4f} ms ({6 * n / 1e9:.2f} GB, {bound_by}; '
+          f'{bound_ms / ms:.3f} of it)')
+    print(f'K4 swap route: the copy of the samples as they are '
+          f'{statistics.median(stage_ms):.3f} ms, then the kernel; the host '
+          f'route it replaced: the float32 conversion '
+          f'{statistics.median(plain_ms):.3f} ms, its 4-byte copy '
+          f'{statistics.median(copy4_ms):.3f} ms; PyTorch cast-copy over '
+          f'the same ranges {lib_note}')
+    return dict(launches=launches, max_abs_err=0.0, ms=ms,
+                call_ms=statistics.median(host_ms),
+                plain_ms=statistics.median(plain_ms), plain_on='cpu',
+                plain_copy_ms=statistics.median(copy4_ms),
+                stage_ms=statistics.median(stage_ms), bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                library=lib_note)
 
 
 def two_step_phase(torch, np, ntsc_cli, pal_cli, d: str):
@@ -3976,11 +4140,14 @@ def _seg_decode(torch, np, FR, CR, L, cfg, bank, path, p, graphs):
     segment, graphs=...): sha256 of the .tbc frames and the .pcm audio, K1
     launches, MSa/s whole and after the first frame, each segment load
     (base, real samples, the batch call's graph counts and the device
-    memory reserved before it), capture seconds, peak memory."""
+    memory reserved before it), capture seconds, peak memory, K4's
+    launches and widenings by route."""
+    from ld_decode_tpu_torch.tbc import cuda_widen as CW
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     CR.resample_lines_batch.launches = 0
+    CW.widen.launches, routes = 0, dict(CW.routes)
     fr = FR.Framer(cfg, bank, loader=L.loader_for_path(path), batch=16,
                    nblocks=p['nblocks'], segment_samples=1, device='cuda',
                    graphs=graphs)
@@ -4013,6 +4180,8 @@ def _seg_decode(torch, np, FR, CR, L, cfg, bank, path, p, graphs):
         t2 = time.perf_counter()
     return dict(frames=n, tbc=tbc.hexdigest(), pcm=pcm.hexdigest(),
                 k1=CR.resample_lines_batch.launches,
+                k4=CW.widen.launches,
+                widenings={k: CW.routes[k] - routes[k] for k in routes},
                 msas=(sample - p['start']) / (t2 - t0) / 1e6,
                 steady=(sample - s1) / (t2 - t1) / 1e6,
                 loads=loads, seg=fr._seg_samples,
@@ -4097,6 +4266,7 @@ def segment_graphs_phase(torch, np, systems, woven, d: str):
     from ld_decode_tpu_torch.io import loaders as L
     from ld_decode_tpu_torch.io import native_unpack as NU
     from ld_decode_tpu_torch.tbc import cuda_resample as CR
+    from ld_decode_tpu_torch.tbc import cuda_widen as CW
     from ld_decode_tpu_torch.tbc import framer as FR
     res, k1 = {}, {}
     for system in ('NTSC', 'PAL'):
@@ -4164,9 +4334,22 @@ def segment_graphs_phase(torch, np, systems, woven, d: str):
         if e['k1'] != g['k1'] or g['k1'] == 0:
             fail(f'{label}: K1 eager {e["k1"]}, graphed {g["k1"]}')
         k1[system] = g['k1']
+        # K4: one widening of the .lds route's uint16 a swap, on the card,
+        # its schedule's launches for the swap's real samples
+        for name, r in (('eager', e), ('graphs', g)):
+            want = sum(len(CW.widen_schedule(x['valid'], 2)) - 1
+                       for x in r['loads'])
+            print(f'  {name:6s}: K4 {r["k4"]} launches over '
+                  f'{len(r["loads"])} loads (expected {want}), widenings '
+                  f'{r["widenings"]}')
+            if r['k4'] != want or r['widenings'] != {
+                    'card': len(r['loads']), 'host': 0}:
+                fail(f'{label} ({name}): K4 launches {r["k4"]}, expected '
+                     f'{want}; widenings {r["widenings"]} for '
+                     f'{len(r["loads"])} loads')
         res[label] = dict(
             swaps=swaps, seg=seg, tail=g['loads'][-1]['valid'],
-            frames=g['frames'], first=first, end=end,
+            frames=g['frames'], first=first, end=end, k4=g['k4'],
             capture_s=g['capture_s'],
             **{k: {q: r[q] for q in ('msas', 'steady', 'peak_mib',
                                      'reserved_mib', 'reserved_growth_mib')}
@@ -4546,7 +4729,7 @@ def run(torch, np, work: str):
     device_phase(torch)
     build_phase()
     kres = kernel_phase(torch, np)
-    cfg, cap, bank, fr, launches = main_path_phase(torch, np)
+    cfg, cap, bank, fr, launches, k4_ntsc = main_path_phase(torch, np)
     parity_phase(torch, np, cfg, bank, fr)
     ntsc_cli = cli_phase(np, cap, cfg, _subdir(work, 'ntsc'))
     del fr
@@ -4555,7 +4738,8 @@ def run(torch, np, work: str):
     chain_cli_phase(torch, np, cap, cfg)
     del dev_frames
 
-    pcfg, pcap, pbank, pfr, pal_launches = main_path_phase(torch, np, 'PAL')
+    pcfg, pcap, pbank, pfr, pal_launches, k4_pal = main_path_phase(
+        torch, np, 'PAL')
     parity_phase(torch, np, pcfg, pbank, pfr,
                  title='11 PAL: card vs cpu, one batch', start=PAL_START,
                  nblk=56, tail_rows=PAL_TAIL_ROWS)
@@ -4602,13 +4786,15 @@ def run(torch, np, work: str):
     print('segments and combs, graphs vs eager', json.dumps(seg_graphs))
     bench = bench_phase(torch)
     api = api_graphs_phase(torch, np, systems)
+    k4 = k4_phase(torch, np)
     if 'jax' in sys.modules:
         fail('jax was imported')
 
     # the kernels line: each kernel with the launches of every path that
     # runs it (each path counted from 0 just before it, read just after);
     # `launches` is this slice's own path of each: the sequential decodes
-    # (K1), the streaming comb (K2), file-level CX (K3)
+    # (K1), the streaming comb (K2), file-level CX (K3), the graphed NTSC
+    # segmented file decode (K4)
     print(f'K1 launches: NTSC decode {launches}, NTSC chain {k1}, PAL decode '
           f'{pal_launches}, PAL chain {pal_k1}, NTSC seq decode {seq_ntsc}, '
           f'PAL seq decode {seq_pal}, ldview {two["k1_view"]}; K2: NTSC chain '
@@ -4651,6 +4837,7 @@ def run(torch, np, work: str):
                      replaces='ld_decode_tpu/tbc/pallas_resample.py:205',
                      ms_method=MS_METHOD)
     k3_launches = k3.pop('launches')
+    k4_swap = k4.pop('launches')
     print(json.dumps({'kernels': [
         dict(name='resample_lines_batch[ntsc finish batch]',
              shape='ntsc field_finish_batch picture (16, 263, 910)',
@@ -4724,7 +4911,22 @@ def run(torch, np, work: str):
                                'ldexport': two['k3']},
              shape='1 MB chunk: 4 lanes x 393,216 steps',
              ms_method='one eager call between CUDA events, median of 5',
-             plain_on='cpu', **k3)]}))
+             plain_on='cpu', **k3),
+        dict(name='capture_widen', route='cuda',
+             source='ld_decode_tpu_torch/csrc/capture_widen.cu',
+             replaces='none: ld_decode_tpu/tbc/framer.py keeps the capture '
+                      'uint16 on the device (jax.device_put)',
+             shape='one segment swap: 2^28 uint16 samples widened in place',
+             launches_by_path={
+                 'segment swap (2^28 uint16)': k4_swap,
+                 'ntsc decode (whole capture)': k4_ntsc,
+                 'pal decode (whole capture)': k4_pal,
+                 'ntsc segmented file graphs':
+                     seg_graphs['NTSC segmented file']['k4'],
+                 'pal segmented file graphs':
+                     seg_graphs['PAL segmented file']['k4']},
+             launches=seg_graphs['NTSC segmented file']['k4'],
+             ms_method=K4_METHOD, **k4)]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

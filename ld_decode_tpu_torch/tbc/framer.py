@@ -23,32 +23,49 @@ from ld_decode_tpu_torch.utils.params import DecoderConfig
 from ld_decode_tpu_torch.utils.spans import span
 from ld_decode_tpu_torch.ops import demod as D
 from ld_decode_tpu_torch.ops.filters import DemodBank
+from ld_decode_tpu_torch.tbc import cuda_widen as CW
 from ld_decode_tpu_torch.tbc import fused as FU
 from ld_decode_tpu_torch.tbc.field import FieldDecoder
 from ld_decode_tpu_torch.tbc.pipeline import FieldPrefetcher
 
 def to_device_capture(samples: np.ndarray, device,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Raw capture samples -> the float32 device capture.  .r16 captures
-    are signed and zero-centred: they are recentred to unsigned 16-bit
-    like every other format (a DC shift is invisible to the FM demod's RF
-    bandpass).  float32 holds every 16-bit sample exactly.
+    """Raw capture samples -> the float32 device capture.  .r16 and .r30
+    captures are signed and zero-centred: they are recentred to unsigned
+    16-bit like every other format (tbc/cuda_widen.py::widen_plain).
 
     out: the segmented Framer's resident buffer, allocated once for the
     whole file.  The samples are copied into its head in place (a copy on
     the stream, so it follows any queued replay still reading the old
     contents) and the rest is zeroed, the JAX package's np.pad to the
     constant segment shape: the batch call's graphs read the buffer in
-    place, so they survive every segment swap.
+    place, so they survive every segment swap.  Without out, a tensor of
+    the samples' length is allocated on `device`.
 
-    Spans: `segment.convert` (the recentre and the float32 conversion) and
-    `segment.copy` (the copy to the device and the tail's zeroing, until
-    the host returns from them)."""
+    On the card the samples are copied as they are and widened to float32
+    there, in place (tbc/cuda_widen.py): they must be 1- or 2-byte
+    integers (every loader's, and the encoder's uint16), or a ValueError
+    is raised.  A CPU output takes the host route: the float32 conversion
+    on the host, then the copy.  Both give the same bits.
+
+    Spans: `segment.copy` (the copy to the device, and on the host route
+    the tail's zeroing, until the host returns from them) and
+    `segment.convert` (on the host route the recentre and the float32
+    conversion, before the copy; on the card the host's launches of the
+    widening kernel and the tail's zeroing, after it: the kernel's device
+    time is its `widen_kernel` operations in a trace)."""
+    arr = np.asarray(samples)
+    dev = torch.device(device) if out is None else out.device
+    if dev.type == 'cuda':
+        kind, n = CW.sample_kind(arr), arr.shape[0]
+        if out is None:
+            out = torch.empty(n, dtype=torch.float32, device=dev)
+        with span('segment.copy'):
+            CW.stage(arr, out)
+        with span('segment.convert'):
+            return CW.widen(out, n, kind)
     with span('segment.convert'):
-        arr = np.asarray(samples)
-        if np.issubdtype(arr.dtype, np.signedinteger):
-            arr = arr.astype(np.int32) + 32768
-        host = torch.from_numpy(arr.astype(np.float32))
+        host = torch.from_numpy(CW.widen_plain(arr))
     with span('segment.copy'):
         if out is None:
             return host.to(device)

@@ -99,12 +99,17 @@ def main(argv=None):
 
 def log_spans():
     """Debug: each span's count, total and self seconds
-    (utils/spans.py), slowest first."""
+    (utils/spans.py), slowest first, and the capture widenings by route
+    (tbc/cuda_widen.py)."""
+    from ld_decode_tpu_torch.tbc import cuda_widen
     from ld_decode_tpu_torch.utils import log, spans
     for name, (n, total, own) in sorted(spans.totals().items(),
                                         key=lambda kv: -kv[1][1]):
         log.debug(f'span {name}: {n} calls, {total:.3f} s total, '
                   f'{own:.3f} s self')
+    log.debug(f'capture widening: {cuda_widen.routes["card"]} on the card '
+              f'({cuda_widen.widen.launches} launches), '
+              f'{cuda_widen.routes["host"]} on the host')
 
 
 def decode(args):

@@ -10,6 +10,7 @@ read, the unpack, the conversion and the copy inside it, and the decode's
 timers are readings of their spans.  The card test checks the shared clock
 against the device's own copy of a swap."""
 
+import io
 import time
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 from ld_decode_tpu_torch.io import loaders as TL
 from ld_decode_tpu_torch.models import encode as TE
 from ld_decode_tpu_torch.ops import filters as TF
+from ld_decode_tpu_torch.tbc import cuda_widen as TCW
 from ld_decode_tpu_torch.tbc import framer as TFR
 from ld_decode_tpu_torch.utils import spans as S
 from ld_decode_tpu_torch.utils.params import DecoderConfig
@@ -254,29 +256,50 @@ def test_the_timers_read_their_spans(segmented):
 
 @pytest.mark.cuda
 def test_card_a_swaps_copy_starts_inside_its_copy_span():
-    """On the card: the pageable copy of a segment (256 MiB of float32)
-    starts on the device inside the host's `segment.copy` record, and the
-    spans allocate nothing on the card."""
+    """On the card a swap reads and unpacks the samples, copies them as
+    they are (128 M samples, 256 MiB of uint16) and widens them there: its
+    parts come in that order; the pageable copy starts on the device
+    inside the host's `segment.copy` record, each of the widening kernel's
+    launches inside or after its `segment.convert` record; the spans and
+    the swap allocate nothing on the card."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device')
-    n = 64 << 20
+    n = 128 << 20
     out = torch.empty(n, dtype=torch.float32, device='cuda')
-    samples = np.arange(n, dtype=np.uint16)
+    lds = io.BytesIO(TL.pack_data_4_40(
+        (np.arange(n) % 1024).astype(np.uint16)).tobytes())
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     acts = CPU + [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(3):
-            TFR.to_device_capture(samples, 'cuda', out=out)
+            with span('segment.swap'):
+                samples = TL.load_packed_4_40(lds, 0, n)
+                TFR.to_device_capture(samples, 'cuda', out=out)
         torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == held
-    copies = [(a, b) for name, a, b, _, _ in S.records()
-              if name == 'segment.copy']
+    recs = S.records()
+    swaps = [k for k, r in enumerate(recs) if r[0] == 'segment.swap']
+    assert len(swaps) == 3
+    for k in swaps:
+        parts = sorted((r[1], r[0]) for r in recs if r[3] == k)
+        assert [name for _, name in parts] == [
+            'load.read', 'load.unpack', 'segment.copy', 'segment.convert']
+    copies = [(a, b) for name, a, b, _, _ in recs if name == 'segment.copy']
+    converts = sorted(a for name, a, _, _, _ in recs
+                      if name == 'segment.convert')
     from torch.autograd import DeviceType
-    memcpy = [e for e in prof.profiler.kineto_results.events()
-              if e.device_type() == DeviceType.CUDA
-              and 'Memcpy HtoD' in e.name()
+    dev = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    memcpy = [e for e in dev if 'Memcpy HtoD' in e.name()
               and e.end_ns() - e.start_ns() > 10e6]
     assert len(copies) == 3 and len(memcpy) >= 3
     for e in memcpy:
         assert any(a <= e.start_ns() <= b for a, b in copies), e.name()
+    # each kernel launch belongs to the last convert record that began
+    # before it started: every record gets its own swap's launches
+    widen = [e.start_ns() for e in dev if 'widen_kernel' in e.name()]
+    per = len(TCW.widen_schedule(n, 2)) - 1
+    assert len(widen) == 3 * per
+    owner = [sum(a <= t for a in converts) - 1 for t in widen]
+    assert sorted(owner) == [0] * per + [1] * per + [2] * per
