@@ -6,6 +6,11 @@ reading the benchmark's stream, graphs on, `pic_mode` as the traffic file
 says (the CLI's `auto`), from the frame of the side the seed picked; each
 `readframe` hands the frame's .tbc picture and .pcm audio, on the host, to
 a sink that counts them.
+
+The entry's comparison (`Driver.judge`): every frame's CAV number against
+the source's, every field's audio carry against the reference's chain, and
+the sampled frames' line locations, woven picture and audio against the
+plain float64 reference (`ldbench/reference/judge.py`).
 """
 
 from __future__ import annotations
@@ -16,7 +21,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ldbench.reference.decode import FieldOut
+from ldbench.harness import Verdict
+from ldbench.reference import judge as J
+from ldbench.reference.decode import FieldOut, Reference
 from ldbench.reference.judge import FrameOut
 
 
@@ -150,9 +157,66 @@ class Driver:
                 'source_seconds': self.src.seconds,
                 'graph_builds': graphs, 'batch': self.batch}
 
+    def mark(self, out: FrameOut) -> Tuple[int, float, object]:
+        """Where the frame's top field lies and the frame's number: what
+        the judge checks of every frame of the window."""
+        top = out.picture_fields[0]
+        return top.readsample, float(top.linelocs[0]), out.framenr
+
+    def notes(self) -> List[Tuple[float, int, bool]]:
+        """Every field read from the first, for the reference's carry
+        chain."""
+        return list(self.carries)
+
     def release(self):
         self.framer = None
         self._read.clear()
+
+    @staticmethod
+    def judge(cell: dict, src, device, marks, sampled: List[FrameOut],
+              carries, control: bool) -> Verdict:
+        """The window's frame numbers (`marks`) and audio carries
+        (`carries`, `notes`' list) and the sampled frames against the
+        reference; with `control`, the control (the reference at the
+        traffic's lower precision) in the decode's place on the same
+        frames."""
+        conf = cell['config']
+        ref = Reference(conf, device)
+        ref_carries, carry_faults = J.audio_carries(ref.cfg, carries)
+        judge = J.Judge(ref, src, ref_carries)
+        verdict = J.Judgement()
+        wrong_numbers = 0
+        for i, (rs, first, nr) in enumerate(marks):
+            want = J.frame_number_truth(ref, src, rs, first)
+            if nr != want:
+                wrong_numbers += 1
+                if wrong_numbers <= 3:
+                    verdict.reasons.append(f'frame {i}: number {nr}, the '
+                                           f'source has {want}')
+        if carry_faults:
+            k = carry_faults[0]
+            verdict.reasons.append(
+                f'{len(carry_faults)} fields started at another audio carry '
+                f'than the field before them gives: field {k} at '
+                f'{carries[k][0]!r}, the reference {float(ref_carries[k])!r}')
+        for k, out in enumerate(sampled):
+            judge.frame(out, verdict, f'sampled frame {k}')
+        ctl = None
+        if control:
+            cref = Reference(conf, device,
+                             precision=cell['traffic']['control'])
+            cj = J.Judgement()
+            for k, out in enumerate(sampled):
+                judge.frame(J.control_frame(cref, src, out, judge), cj,
+                            f'control frame {k}')
+            ctl = Verdict(cj.numbers(), cj.failed, cj.frames, cj.reasons)
+        return Verdict(
+            verdict.numbers(),
+            verdict.failed + wrong_numbers + len(carry_faults),
+            verdict.frames, verdict.reasons,
+            {'far_lines': verdict.far_lines,
+             'unmoved_lines': verdict.unmoved_lines,
+             'worst': verdict.worst_line}, ctl)
 
 
 def _field_out(f, offset: float, requested: int, index: int) -> FieldOut:

@@ -1,11 +1,17 @@
 """One run of one cell: set-up, the measured window, the per-layer readings
-and the comparison that decides `correct`.
+and the verdict that decides `correct`.
 
 Everything a cell needs is found by name: its entry in BENCHMARK.json names
 its configuration (`ldbench/configs/<name>.json`) and its traffic
 (`ldbench/traffic/<name>.json`, whose `entry` names the driver
 `ldbench/drivers/<entry>.py`); its limits are `ldbench/limits/<cell>.json`;
 each per-layer metric is read by `ldbench/metrics/<metric>.py`.
+
+The comparison is the entry's: its `Driver` marks every frame of the window
+(`mark`), hands over what its judge needs of the run (`notes`), and judges
+the marks and the seeded sample of frames against its own reference
+(`Driver.judge`, which returns a `Verdict`).  The harness holds the verdict
+to the cell's limits.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import dataclass, field
 from types import SimpleNamespace
 from typing import Dict, List, Optional
 
@@ -83,6 +90,20 @@ def jax_loaded() -> List[str]:
                   & set(JAX_NAMES))
 
 
+@dataclass
+class Verdict:
+    """An entry's judgement of a run: its `numbers`, keyed as the cell's
+    limits; the `frames` it judged and how many `failed`, with the
+    `reasons`; further readings for standard error (`extras`); and, where
+    the control was asked for, the control's verdict on the same frames."""
+    numbers: Dict[str, float]
+    failed: int
+    frames: int
+    reasons: List[str] = field(default_factory=list)
+    extras: Dict[str, object] = field(default_factory=dict)
+    control: Optional['Verdict'] = None
+
+
 class Reservoir:
     """A uniform sample of `size` items of a stream, drawn from a seed."""
 
@@ -111,16 +132,14 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
         tile_frames: Optional[int] = None) -> dict:
     """Run the cell once; returns the result object that run.py prints
     (the keys that begin with '_' are the run's notes for standard error).
-    `control` also judges the control on the window's sample of frames;
-    `tile_frames` shortens the tile (tests on the CPU).
+    `control` also asks the entry's judge for the control's verdict on the
+    window's sample of frames; `tile_frames` shortens the tile (tests on the CPU).
 
     The window starts `warmup_frames_after_swap` frames after a segment
     swap and ends, once `seconds` have passed, on the frame that lies as
     many frames after a swap: it holds a whole number of swap cycles, so
     where its end falls in the cycle does not move the rate."""
     import torch
-    from ldbench.reference import judge as J
-    from ldbench.reference.decode import Reference
     from ldbench.source.stream import SideStream
     from ldbench import yardstick as Y
 
@@ -130,7 +149,8 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
     traffic, conf = cell['traffic'], cell['config']
     phase = int(traffic['warmup_frames_after_swap'])
     src = SideStream(conf, seed, device, tile_frames=tile_frames)
-    drv = driver_class(traffic['entry'])(cell, src, device)
+    entry = driver_class(traffic['entry'])
+    drv = entry(cell, src, device)
     drv.warm_up(phase)
     if on_card:
         torch.cuda.synchronize(device)
@@ -144,8 +164,9 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
         with torch.profiler.profile(activities=activities):
             torch.ones(1, device=device).add_(1)
     before = drv.counters()
+    source_s = src.seconds
     sample = Reservoir(int(traffic['check_frames']), seed)
-    tops = []           # (where its top field lies, number) of every frame
+    marks = []          # the entry's mark of every frame
     times = []          # when each frame was on the host
     ends = []           # the stream sample after each frame
     swaps = []          # (frame index, gap) of each frame that swapped
@@ -169,8 +190,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
         times.append(t)
         ends.append(drv.sample)
         sample.offer(out)
-        top = out.picture_fields[0]
-        tops.append((top.readsample, float(top.linelocs[0]), out.framenr))
+        marks.append(drv.mark(out))
         if trace:
             # the traced slice: from the first frame `slice_at` into the
             # window, `slice_len` seconds from the profiler's start
@@ -195,8 +215,9 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
         if t > deadline + seconds:
             break       # no swap cycle closed in as long again
     after = drv.counters()
+    source_s = src.seconds - source_s
     program_peak, device_peak = src.memory_peaks()
-    carries = list(drv.carries)
+    notes = drv.notes()
 
     # the window: every frame of it, and all its time
     window_s = times[-1] - t0
@@ -228,43 +249,12 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
     del drv
     if on_card:
         torch.cuda.empty_cache()
-    ref = Reference(conf, device)
-    ref_carries, carry_faults = J.audio_carries(ref.cfg, carries)
-    judge = J.Judge(ref, src, ref_carries)
-    verdict = J.Judgement()
-    wrong_numbers = 0
-    for i, (rs, first, nr) in enumerate(tops):
-        want = J.frame_number_truth(ref, src, rs, first)
-        if nr != want:
-            wrong_numbers += 1
-            if wrong_numbers <= 3:
-                verdict.reasons.append(f'frame {i}: number {nr}, the source '
-                                       f'has {want}')
-    if carry_faults:
-        k = carry_faults[0]
-        verdict.reasons.append(
-            f'{len(carry_faults)} fields started at another audio carry than '
-            f'the field before them gives: field {k} at {carries[k][0]!r}, '
-            f'the reference {float(ref_carries[k])!r}')
-    for k, out in enumerate(sample.items):
-        judge.frame(out, verdict, f'sampled frame {k}')
-    failed = verdict.failed + wrong_numbers + len(carry_faults)
+    verdict = entry.judge(cell, src, device, marks, sample.items, notes,
+                          control)
     limits = cell['limits']
-    numbers = verdict.numbers()
+    numbers, failed = verdict.numbers, verdict.failed
     correct = (failed == 0 and verdict.frames > 0
                and all(numbers[k] <= limits[k] for k in limits))
-
-    ctl_numbers = None
-    if control:
-        ctl = Reference(conf, device, precision=traffic['control'])
-        cj = J.Judgement()
-        for k, out in enumerate(sample.items):
-            judge.frame(J.control_frame(ctl, src, out, judge), cj,
-                        f'control frame {k}')
-        ctl_numbers = dict(cj.numbers(), failed=cj.failed,
-                           correct=cj.failed == 0 and all(
-                               cj.numbers()[k] <= limits[k]
-                               for k in limits))
 
     result = {'correct': bool(correct), 'attempted': len(times),
               'failed': int(failed), 'metrics': metrics,
@@ -283,14 +273,11 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
     result['checks']['failed_frames'] = {'value': failed, 'limit': 0}
     result['_reasons'] = verdict.reasons
     result['_source'] = {'start_frame': src.start_frame,
-                         'seconds_in_window': after['source_seconds']
-                         - before['source_seconds'],
+                         'seconds_in_window': source_s,
                          'reads_total': src.reads,
                          'resident_bytes': src.resident_bytes}
     result['_window'] = dict(
-        {k: after[k] - before[k] for k in (
-            'batches', 'refills', 'flushes', 'seq_fallback',
-            'loader_seconds')},
+        {k: after[k] - before[k] for k in after},
         seconds=window_s, profiler_seconds=profiler_s, frames=len(times),
         whole_cycles=since == phase,
         program_peak_bytes=int(program_peak))
@@ -304,11 +291,12 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
             result['_card'] = Y.device_info(device)
         except (OSError, subprocess.SubprocessError, ValueError) as e:
             result['_card'] = f'nvidia-smi: {e}'
-    result['_lines'] = {'far_lines': verdict.far_lines,
-                        'unmoved_lines': verdict.unmoved_lines,
-                        'worst': verdict.worst_line}
-    if ctl_numbers is not None:
-        result['_control'] = ctl_numbers
+    result['_extras'] = verdict.extras
+    ctl = verdict.control
+    if ctl is not None:
+        result['_control'] = dict(
+            ctl.numbers, failed=ctl.failed, correct=ctl.failed == 0 and all(
+                ctl.numbers[k] <= limits[k] for k in limits))
     return result
 
 

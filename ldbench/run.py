@@ -68,7 +68,7 @@ def main(argv=None) -> int:
         traceback.print_exc()
         return 1
     for k in ('_card', '_source', '_window', '_cycles', '_trace',
-              '_sampled_frames', '_lines', '_control', '_reasons'):
+              '_sampled_frames', '_extras', '_control', '_reasons'):
         if k in result:
             print(f'ldbench {k[1:]}: {json.dumps(result.pop(k))}',
                   file=sys.stderr)
