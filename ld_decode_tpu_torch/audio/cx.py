@@ -33,6 +33,7 @@ import torch
 from ld_decode_tpu_torch.audio.cuda_cx import envelope_lanes
 from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
+from ld_decode_tpu_torch.utils.spans import span
 
 M14DB = 0.199526231496888
 FACTOR = 6500.0
@@ -193,7 +194,12 @@ class CXExpander:
 
     def process(self, pcm: np.ndarray) -> np.ndarray:
         """pcm: interleaved uint16 (offset-32768) or int16 stereo samples.
-        Returns expanded interleaved uint16 like the reference tool."""
+        Returns expanded interleaved uint16 like the reference tool.  The
+        `cx.process` span (utils/spans.py)."""
+        with span('cx.process'):
+            return self._process(pcm)
+
+    def _process(self, pcm: np.ndarray) -> np.ndarray:
         pcm = np.asarray(pcm)
         if pcm.dtype == np.int16:
             left = pcm[0::2].astype(np.float64)

@@ -44,6 +44,13 @@ the raw path's cut to 8 bits (`_to_rgb8`).
 `CombWindows` is the chain's loop over windows, shared by
 ldchain_torch.py, bench_torch.py, chip_smoke.py and
 scripts/profile_torch.py.
+
+Spans (utils/spans.py), on the chain's thread: `comb.feed` is each feed of
+`CombWindows`, holding NTSC's `comb.levels` (the AGC's round trip to the
+host) and `comb.replay` (the window's graph replay and the start of its
+copies to the host); `comb.collect` is each window's wait for its copies
+and their conversion on the host.  `stats` counts `frames_fed`,
+`frames_emitted` and the seconds of `t_feed` and `t_collect`.
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
 from ld_decode_tpu_torch.utils.device import to_host_async
 from ld_decode_tpu_torch.utils.graphs import GraphCache, as_cache
+from ld_decode_tpu_torch.utils.spans import span
 
 # the pyramid cap keeps both dims of the 252x840 field images >= 32 px,
 # which at pyr_scale 0.5 caps the requested 4 levels to 2
@@ -154,7 +162,8 @@ class _RgbCodecMixin:
         self.codec = codec
         self._prefixes = CODEC.PrefixCopies()
         self._decode_ex = None
-        self.stats = {'t_feed': 0.0, 'windows': 0}
+        self.stats = {'t_feed': 0.0, 'windows': 0, 'frames_fed': 0,
+                      'frames_emitted': 0, 't_collect': 0.0}
         if codec:
             self.stats.update(rgb_decode_fallback=0, rgb_decode_native=0,
                               rgb_decode_numpy=0, rgb_topups=0,
@@ -185,15 +194,21 @@ class _RgbCodecMixin:
 
     def _receive(self, handle):
         """Wait for a window's copies: (RGB frames as np.uint16, or np.uint8
-        with out8, the other host arrays)."""
-        kind, host, event, payload = handle
-        if event is not None:
-            event.synchronize()
-        data = {k: v.numpy() for k, v in host.items()}
-        if kind == 'raw':
-            rgb = data.pop('rgb')
-            return list(rgb if self.out8 else rgb.astype(np.uint16)), data
-        return self._decode_window(data, *payload), data
+        with out8, the other host arrays).  The `comb.collect` span, timed
+        in stats['t_collect']; the frames count in stats['frames_emitted']."""
+        with span('comb.collect') as sp:
+            kind, host, event, payload = handle
+            if event is not None:
+                event.synchronize()
+            data = {k: v.numpy() for k, v in host.items()}
+            if kind == 'raw':
+                rgb = data.pop('rgb')
+                rgb = list(rgb if self.out8 else rgb.astype(np.uint16))
+            else:
+                rgb = self._decode_window(data, *payload)
+        self.stats['t_collect'] += sp.seconds
+        self.stats['frames_emitted'] += len(rgb)
+        return rgb, data
 
     def _decode_window(self, data, dense, dense_q, E, rows, W):
         rows2 = data['rows2'].astype(np.int64)
@@ -261,6 +276,7 @@ class NTSCCombBatch(_RgbCodecMixin):
         nothing can emit yet."""
         t0 = time.perf_counter()
         dev = _window_tensor(frames, self.device, IN_Y, IN_X)
+        self.stats['frames_fed'] += dev.shape[0]
         try:
             return self._feed(dev)
         finally:
@@ -275,11 +291,13 @@ class NTSCCombBatch(_RgbCodecMixin):
         if cfg.dim < 3:
             if not dev.shape[0]:
                 return None
-            levels, self.aburstlev = burst_levels(dev, self.aburstlev, cfg)
-            rgb, words = self.graphs(
-                ('comb_window_simple', cfg),
-                lambda w, lv: _comb_window_simple(w, lv, cfg), (dev, levels))
-            return self._fetch(rgb, words)
+            levels = self._levels(dev)
+            with span('comb.replay'):
+                rgb, words = self.graphs(
+                    ('comb_window_simple', cfg),
+                    lambda w, lv: _comb_window_simple(w, lv, cfg),
+                    (dev, levels))
+                return self._fetch(rgb, words)
 
         if not self._started and cfg.opticalflow and dev.shape[0]:
             # stream start: frame 0 is never emitted in flow mode (its
@@ -295,19 +313,27 @@ class NTSCCombBatch(_RgbCodecMixin):
             return None
         self._pend = dev[-keep:]
         if cfg.opticalflow:
-            levels, self.aburstlev = burst_levels(dev[:-1], self.aburstlev,
-                                                  cfg)
-            rgb, words, self._flow = self.graphs(
-                ('comb_window_flow', cfg),
-                lambda w, f, lv: _comb_window_flow(w, f, lv, cfg),
-                (dev, self._flow, levels))
-        else:
-            levels, self.aburstlev = burst_levels(dev[1:-1], self.aburstlev,
-                                                  cfg)
+            levels = self._levels(dev[:-1])
+            with span('comb.replay'):
+                rgb, words, self._flow = self.graphs(
+                    ('comb_window_flow', cfg),
+                    lambda w, f, lv: _comb_window_flow(w, f, lv, cfg),
+                    (dev, self._flow, levels))
+                return self._fetch(rgb, words)
+        levels = self._levels(dev[1:-1])
+        with span('comb.replay'):
             rgb, words = self.graphs(
                 ('comb_window_ring', cfg),
                 lambda w, lv: _comb_window_ring(w, lv, cfg), (dev, levels))
-        return self._fetch(rgb, words)
+            return self._fetch(rgb, words)
+
+    def _levels(self, frames: torch.Tensor) -> torch.Tensor:
+        """The AGC levels of the frames a window emits, the carry advanced:
+        the `comb.levels` span (`burst_levels`' round trip to the host)."""
+        with span('comb.levels'):
+            levels, self.aburstlev = burst_levels(frames, self.aburstlev,
+                                                  self.cfg)
+        return levels
 
     @property
     def held(self) -> int:
@@ -366,6 +392,7 @@ class PALCombBatch(_RgbCodecMixin):
         if nothing can emit yet."""
         t0 = time.perf_counter()
         dev = _window_tensor(frames, self.device, PAL_Y, PAL_X)
+        self.stats['frames_fed'] += dev.shape[0]
         try:
             return self._feed(dev)
         finally:
@@ -465,10 +492,12 @@ class CombWindows:
     def _flush(self, limit: int):
         if self._buf:
             dev = self.comb.device
-            h = self.comb.feed(torch.stack([
-                x.to(dev) if isinstance(x, torch.Tensor)
-                else torch.from_numpy(np.asarray(x).astype(np.int32)).to(dev)
-                for x in self._buf]))
+            with span('comb.feed'):
+                h = self.comb.feed(torch.stack([
+                    x.to(dev) if isinstance(x, torch.Tensor)
+                    else torch.from_numpy(np.asarray(x).astype(np.int32)
+                                          ).to(dev)
+                    for x in self._buf]))
             if h is not None:
                 self._pending.append(h)
             self._buf.clear()

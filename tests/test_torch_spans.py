@@ -7,8 +7,11 @@ record_function and keeps a record on the profiler's own clock.  A
 segmented decode (the smallest segment over a small .lds file, as in
 tests/test_torch_segmented.py) gives each swap one `segment.swap` with the
 read, the unpack, the conversion and the copy inside it, and the decode's
-timers are readings of their spans.  The card test checks the shared clock
-against the device's own copy of a swap."""
+timers are readings of their spans.  The chain's comb and CX expander, as
+ldchain_torch.py -F runs them, open `comb.feed` (holding `comb.levels`
+and `comb.replay`) a window fed, `comb.collect` a window collected and
+`cx.process` a frame, and touch nothing more with no profiler.  The card
+test checks the shared clock against the device's own copy of a swap."""
 
 import io
 import time
@@ -248,6 +251,123 @@ def test_the_timers_read_their_spans(segmented):
                                                 rel=1e-9)
     assert st['refills'] == tot['prefetch.refill'][0]
     assert 'skips' not in st and 'cache_hits' not in st
+
+
+# ---------------------------------------------------------------------------
+# the chain's comb and CX
+
+
+def _chain_frames(n: int) -> np.ndarray:
+    """n seeded 525 x 910 frames with a burst phase flag (column 0) and a
+    burst level over 3 IRE (column 1) on every line."""
+    rng = np.random.default_rng(17)
+    fr = rng.integers(20000, 40000, (n, 525, 910)).astype(np.uint16)
+    fr[:, :, 0] = np.where(np.arange(525) % 2 == 0, 16384, 32768)
+    fr[:, :, 1] = 7168
+    return fr
+
+
+def _run_chain(n: int = 7):
+    """The -F comb through CombWindows (windows of 3 frames, 1 in flight)
+    and CX on each frame's audio, as ldchain_torch.py runs them: (the comb,
+    the RGB frames emitted)."""
+    from ld_decode_tpu_torch.audio.cx import CXExpander
+    from ld_decode_tpu_torch.comb import batch as TB
+    from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig
+    comb = TB.NTSCCombBatch(CombConfig(dim=3, opticalflow=False),
+                            device='cpu', graphs=False)
+    out = []
+    loop = TB.CombWindows(comb, 3, 1, lambda rgb, words: out.append(rgb))
+    cx = CXExpander(device='cpu')
+    audio = np.random.default_rng(5).integers(-3000, 3000, 3204
+                                              ).astype(np.int16)
+    for f in _chain_frames(n):
+        loop.push(f)
+        cx.process(audio)
+    loop.drain()
+    return comb, out
+
+
+def test_comb_and_cx_spans_nest_and_count():
+    """`comb.feed` (one a window fed) holds `comb.levels` and then
+    `comb.replay`; `comb.collect` opens once a window collected, outside
+    the feeds; `cx.process` once a frame; the comb's counters are the
+    frames fed and emitted and its timers the totals of its spans."""
+    with torch.profiler.profile(activities=CPU):
+        comb, out = _run_chain()
+    recs, tot, st = S.records(), S.totals(), comb.stats
+    feeds = [k for k, r in enumerate(recs) if r[0] == 'comb.feed']
+    # 7 frames in windows of 3: fed 3, 3 and 1 (the drain)
+    assert len(feeds) == 3
+    for k in feeds:
+        assert recs[k][3] == -1
+        kids = [r[0] for r in recs if r[3] == k]
+        assert kids in (['comb.levels', 'comb.replay'], []), kids
+    assert sum(1 for r in recs if r[3] in feeds) == 2 * st['windows']
+    collects = [r for r in recs if r[0] == 'comb.collect']
+    assert len(collects) == st['windows'] == 3
+    assert all(r[3] == -1 for r in collects)
+    assert sum(1 for r in recs if r[0] == 'cx.process') == 7
+    assert st['frames_fed'] == 7
+    # the ring emits frames 1..5 (frame 0 opens it, frame 6 closes it)
+    assert st['frames_emitted'] == len(out) == 5
+    assert st['t_collect'] == pytest.approx(tot['comb.collect'][1],
+                                            rel=1e-9)
+    assert tot['comb.feed'][1] >= tot['comb.levels'][1] \
+        + tot['comb.replay'][1]
+
+
+def test_comb_and_cx_spans_touch_nothing_off(monkeypatch):
+    """With no profiler the chain's spans open no record_function, keep no
+    record and add no operator: the comb dispatches the same operators
+    with its spans as with spans that do nothing."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    import torch.autograd.profiler as AP
+    from ld_decode_tpu_torch.audio import cx as TCX
+    from ld_decode_tpu_torch.comb import batch as TB
+
+    def refused(name):
+        raise AssertionError(f'record_function({name!r}) with no profiler')
+
+    class Seen(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    # a first run builds what every later one reuses (filter designs,
+    # tensors made once), so both compared runs come after it
+    _run_chain(5)
+    S.reset()
+    monkeypatch.setattr(AP, 'record_function', refused)
+    with Seen() as on:
+        _, out_on = _run_chain(5)
+    assert S.records() == []
+    assert S.totals()['comb.collect'][0] == 2
+    assert S.totals()['cx.process'][0] == 5
+
+    class Nothing:
+        seconds = 0.0
+
+        def __init__(self, name):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(TB, 'span', Nothing)
+    monkeypatch.setattr(TCX, 'span', Nothing)
+    with Seen() as off:
+        _, out_off = _run_chain(5)
+    assert on.ops == off.ops and len(on.ops) > 0
+    for a, b in zip(out_on, out_off):
+        np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------------------
