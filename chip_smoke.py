@@ -215,6 +215,13 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      conversion and its 4-byte copy) and PyTorch's cast-copy over the same
      ranges.  Phases 4 and 10 count its launches on the whole capture,
      phase 27 on every swap of the segmented file decodes.
+ 31. the .lds unpack on the host's cores (io/native_unpack.py,
+     csrc/unpack_threads.cpp): a 2^28 sample segment (the cells' 512 MB)
+     unpacked into a fresh array on one thread and split across the
+     threads the loader picks, bit-equal, each the median of UNPACK_REPS
+     calls in turns; at the reads around the split's threshold, one
+     thread, the powers of two below the loader's count and the count;
+     the host's CPU, its usable cores, its CPU quota and the threads.
 Every decode and chain phase runs with the default graphs on.
 The line before the last is the kernel JSON; the last line is the result.
 """
@@ -258,6 +265,10 @@ K3_CHAIN_OPS, K3_OP_CYCLES = 3, 4
 # and K4_TAIL short of it (the tail zeroed); the loaders' sample types
 K4_SAMPLES, K4_TAIL, K4_REPS = 1 << 28, 12345, 15
 K4_TYPES = (('.lds', 'uint16'), ('.r16/.r30', 'int16'), ('.raw', 'uint8'))
+# phase 31: calls of each unpack route, and the read sizes (groups of 5
+# bytes) timed around the split's threshold
+UNPACK_REPS = 7
+UNPACK_SIZES = (1 << 18, 1 << 19, 1 << 20, 1 << 22)
 K4_METHOD = ('CUDA events around one widening (its launches and the '
              'tail memset) after a fresh stage of the samples; 1.6 GB of '
              'traffic against the 50 MB L2, so a cold read; median of '
@@ -1871,6 +1882,68 @@ def k4_phase(torch, np):
                 stage_ms=statistics.median(stage_ms), bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms,
                 library=lib_note)
+
+
+def _host_cpu() -> str:
+    """The host CPU's model name, or its family and model where the name
+    reads unknown."""
+    fields = {}
+    with open('/proc/cpuinfo') as f:
+        for line in f:
+            key, _, value = line.partition(':')
+            fields.setdefault(key.strip(), value.strip())
+            if not line.strip():
+                break
+    name = fields.get('model name', 'unknown')
+    return (name if name != 'unknown' else
+            f'{fields.get("vendor_id")} family {fields.get("cpu family")} '
+            f'model {fields.get("model")}')
+
+
+def unpack_phase(np):
+    """The .lds unpack, one thread against the split the loader picks, on
+    the card's host (module docstring, phase 31)."""
+    phase('31 the .lds unpack on the host cores')
+    from ld_decode_tpu_torch.io import native_unpack as NU
+    cores = len(os.sched_getaffinity(0))
+    rng = np.random.default_rng(RNG_SEED + 31)
+    groups = K4_SAMPLES // 4
+    raw = rng.integers(0, 256, groups * 5, dtype=np.uint8)
+    lib = NU._load_threads()
+
+    def unpack(g: int, threads: int):
+        """g groups of raw on `threads` threads into a fresh array, as the
+        loader's."""
+        out = np.empty(g * 4, dtype=np.uint16)
+        lib.unpack_4_40_threads(raw.ctypes.data, g, out.ctypes.data, threads)
+        return out
+
+    threads = NU.threads_for(groups)
+    one = unpack(groups, 1)
+    exact = bool(np.array_equal(unpack(groups, threads), one))
+    exact &= bool(np.array_equal(NU.unpack_4_40(raw, groups * 4, 0), one))
+    del one
+    print(f'host {_host_cpu()}, {os.cpu_count()} CPUs, {cores} usable, CPU '
+          f'quota {NU.quota_cpus()}; a {groups * 4} sample segment unpacks '
+          f'on {threads} threads (MIN_GROUPS_PER_THREAD '
+          f'{NU.MIN_GROUPS_PER_THREAD}), bit-equal to one thread {exact}')
+    if not exact or threads < 2:
+        fail(f'unpack: bit-equal {exact}, {threads} threads of {cores} cores')
+
+    for g in UNPACK_SIZES + (groups,):
+        # one thread, the powers of two below the loader's count and the
+        # count, in turns
+        most = NU.threads_for(g)
+        ms = {t: [] for t in sorted({1, most} | {
+            1 << k for k in range(most.bit_length()) if 1 << k < most})}
+        for k in range(UNPACK_REPS if g == groups else 4 * UNPACK_REPS):
+            for t in (list(ms) if k % 2 == 0 else list(ms)[::-1]):
+                t0 = time.perf_counter()
+                unpack(g, t)
+                ms[t].append((time.perf_counter() - t0) * 1e3)
+        print(f'unpack {g * 4} samples ({most} by the rule): ' + ', '.join(
+            f'{t} thread{"s" * (t > 1)} {statistics.median(v):.3f} ms '
+            f'({min(v):.3f}-{max(v):.3f})' for t, v in ms.items()))
 
 
 def two_step_phase(torch, np, ntsc_cli, pal_cli, d: str):
@@ -4787,6 +4860,7 @@ def run(torch, np, work: str):
     bench = bench_phase(torch)
     api = api_graphs_phase(torch, np, systems)
     k4 = k4_phase(torch, np)
+    unpack_phase(np)
     if 'jax' in sys.modules:
         fail('jax was imported')
 

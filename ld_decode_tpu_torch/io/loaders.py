@@ -10,9 +10,10 @@ Implements the loader API contract of the reference
   * .r16  — int16 LE (reference lddutils.py:146-147)
   * .raw/.u8 — uint8 cxADC (reference lddutils.py:143-144)
 
-A C++ fast path for the .lds bit-unpack lives in csrc/unpack.cpp (ctypes,
-io/native_unpack.py); these numpy versions are the reference-parity
-fallback, taken when no g++ can build it.  The PyTorch port's copy of
+A C++ fast path for the .lds bit-unpack lives in csrc/unpack_threads.cpp
+(ctypes, io/native_unpack.py), split across the host's cores for large
+reads; these numpy versions are the reference-parity fallback, taken when
+no g++ can build it.  The PyTorch port's copy of
 ld_decode_tpu/io/loaders.py (the port imports nothing of the JAX package).
 """
 
@@ -31,6 +32,9 @@ _native = None
 # ran and what it cost
 unpack_calls = {'native': 0, 'numpy': 0}
 unpack_seconds = {'native': 0.0, 'numpy': 0.0}
+# native .lds unpacks that ran on more than one thread, and the threads
+# the last of them used
+unpack_threads = {'split': 0, 'threads': 0}
 
 
 def _try_native():
@@ -86,6 +90,9 @@ def unpack_data_4_40(raw: np.ndarray, readlen: int,
     with span('load.unpack') as sp:
         if nat:
             out = nat.unpack_4_40(raw, readlen, offset)
+            if nat.last_threads > 1:
+                unpack_threads['split'] += 1
+                unpack_threads['threads'] = nat.last_threads
         else:
             groups = len(raw) // 5
             b = raw[:groups * 5].reshape(groups, 5).astype(np.uint16)

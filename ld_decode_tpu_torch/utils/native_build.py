@@ -1,10 +1,11 @@
 """Build the package's host C++ helpers with g++ at first use.
 
-The port's copy of ld_decode_tpu/utils/native_build.py.  A helper is
-compiled with ``-O3 -march=native``, so a binary built on another machine
-can SIGILL (killing the process from inside a ctypes call) or run stale
-code.  Each library therefore lands in build/ld_decode_tpu_torch/ at the
-repository root (git-ignored, beside the CUDA builds of
+The port's copy of ld_decode_tpu/utils/native_build.py, with ``-pthread``
+added for the helpers that start threads.  A helper is compiled with
+``-O3 -march=native``, so a binary built on another machine can SIGILL
+(killing the process from inside a ctypes call) or run stale code.  Each
+library therefore lands in build/ld_decode_tpu_torch/ at the repository
+root (git-ignored, beside the CUDA builds of
 utils/cuda_build.py), named by a hash of the source, the host's CPU and
 the compiler: an edited source or a foreign binary never loads.
 Concurrent builders race benignly through tmp + rename.
@@ -20,7 +21,7 @@ import subprocess
 
 from ld_decode_tpu_torch.utils.cuda_build import BUILD_DIR, CSRC_DIR
 
-CXX_FLAGS = ('-O3', '-march=native', '-shared', '-fPIC')
+CXX_FLAGS = ('-O3', '-march=native', '-shared', '-fPIC', '-pthread')
 
 
 def _host_fingerprint() -> bytes:

@@ -99,8 +99,10 @@ def main(argv=None):
 
 def log_spans():
     """Debug: each span's count, total and self seconds
-    (utils/spans.py), slowest first, and the capture widenings by route
-    (tbc/cuda_widen.py)."""
+    (utils/spans.py), slowest first, the capture widenings by route
+    (tbc/cuda_widen.py) and the .lds unpacks split across threads
+    (io/loaders.py)."""
+    from ld_decode_tpu_torch.io import loaders
     from ld_decode_tpu_torch.tbc import cuda_widen
     from ld_decode_tpu_torch.utils import log, spans
     for name, (n, total, own) in sorted(spans.totals().items(),
@@ -110,6 +112,8 @@ def log_spans():
     log.debug(f'capture widening: {cuda_widen.routes["card"]} on the card '
               f'({cuda_widen.widen.launches} launches), '
               f'{cuda_widen.routes["host"]} on the host')
+    log.debug(f'.lds unpack: {loaders.unpack_threads["split"]} split across '
+              f'threads (the last on {loaders.unpack_threads["threads"]})')
 
 
 def decode(args):

@@ -2,8 +2,11 @@
 port imports nothing of the JAX package) behave exactly as the originals:
 every output equal in memory."""
 
+import contextlib
+import ctypes
 import dataclasses
 import io
+import mmap
 import os
 import types
 
@@ -139,6 +142,124 @@ def test_native_unpack_equal(ext):
             for a in (got, plain):
                 assert a.dtype == want.dtype
                 np.testing.assert_array_equal(a, want)
+
+
+@contextlib.contextmanager
+def _before_a_guard_page(raw: np.ndarray):
+    """`raw` copied to end where an unreadable page begins: an unpack that
+    reads past its last byte faults."""
+    page = mmap.PAGESIZE
+    body = -(-max(len(raw), 1) // page) * page
+    buf = np.frombuffer(mmap.mmap(-1, body + page), np.uint8)
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mprotect.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int]
+    guard = buf.ctypes.data + body
+    buf[body - len(raw):body] = raw
+    assert libc.mprotect(guard, page, 0) == 0          # PROT_NONE
+    try:
+        yield buf[body - len(raw):body]
+    finally:
+        libc.mprotect(guard, page, mmap.PROT_READ | mmap.PROT_WRITE)
+
+
+@pytest.mark.parametrize('groups', ['one', 'prime', 'threads-1',
+                                    'threads+1'])
+@pytest.mark.parametrize('threads', [1, 2, 3, 7])
+def test_threaded_unpack_equal(threads, groups, monkeypatch):
+    """The .lds unpack split across threads (csrc/unpack_threads.cpp) against
+    the same on one thread and the numpy route, bit for bit: every sample
+    offset mod 4, read lengths that end inside a group, group counts that
+    split unevenly or leave threads without a group (the library then runs
+    fewer, down to one), the input ending where an unreadable page
+    begins."""
+    n = {'one': 1, 'prime': 1009, 'threads-1': threads - 1,
+         'threads+1': threads + 1}[groups]
+    s = np.random.default_rng(21 + n).integers(0, 1024, n * 4)
+    with _before_a_guard_page(TL.pack_data_4_40(s)) as raw:
+        assert len(raw) == n * 5
+        for off in range(4):
+            for readlen in sorted({max(n * 4 - off - k, 0)
+                                   for k in range(4)}):
+                with monkeypatch.context() as mp:
+                    mp.setattr(TNU, 'threads_for', lambda g: threads)
+                    got = TNU.unpack_4_40(raw, readlen, off)
+                    assert TNU.last_threads == threads
+                with monkeypatch.context() as mp:
+                    mp.setattr(TNU, 'threads_for', lambda g: 1)
+                    one = TNU.unpack_4_40(raw, readlen, off)
+                TL.set_native(False)
+                try:
+                    plain = TL.unpack_data_4_40(raw, readlen, off)
+                finally:
+                    TL.set_native(True)
+                for a in (got, one, plain):
+                    assert a.dtype == np.uint16 and len(a) == readlen
+                    np.testing.assert_array_equal(a, s[off:off + readlen])
+
+
+def test_unpack_splits_above_the_crossover(monkeypatch):
+    """A loader read splits its unpack across the cores (four here) once
+    every thread gets MIN_GROUPS_PER_THREAD groups, and counts it in
+    unpack_threads; a read just below stays on one thread, as the
+    --batch 1 path's field window (1,012,704 samples) does on any host."""
+    monkeypatch.setattr(os, 'sched_getaffinity', lambda pid: set(range(4)))
+    monkeypatch.setattr(TNU, 'quota_cpus', lambda: None)
+    m = TNU.MIN_GROUPS_PER_THREAD
+    assert TNU.threads_for(1_012_704 // 4 + 2) == 1
+    s = np.random.default_rng(5).integers(0, 1024, (5 * m + 2) * 4)
+    f = io.BytesIO(TL.pack_data_4_40(s).tobytes())
+    # a read of readlen samples at offset 0 unpacks readlen / 4 + 1 groups
+    for groups, threads in ((2 * m - 1, 1), (2 * m, 2), (3 * m + 1, 3),
+                            (5 * m + 1, 4)):
+        readlen = (groups - 1) * 4
+        before = dict(TL.unpack_threads)
+        got = TL.load_packed_4_40(f, 0, readlen)
+        np.testing.assert_array_equal(got, s[:readlen])
+        assert TNU.last_threads == threads
+        split = TL.unpack_threads['split'] - before['split']
+        assert split == (threads > 1)
+        if threads > 1:
+            assert TL.unpack_threads['threads'] == threads
+
+
+# /proc/self/cgroup and the quota files of each layout, and the CPUs it
+# allows: v2 (cpu.max) and v1 (cpu.cfs_*) hierarchies, the smallest
+# quota over a cgroup and its ancestors, unset quotas
+_CGROUPS = {
+    'v2': ({'proc/self/cgroup': '0::/a/b\n',
+            'sys/fs/cgroup/a/b/cpu.max': '250000 100000\n'}, 3),
+    'v2-unset': ({'proc/self/cgroup': '0::/a/b\n',
+                  'sys/fs/cgroup/a/b/cpu.max': 'max 100000\n',
+                  'sys/fs/cgroup/cpu.max': 'max 100000\n'}, None),
+    'v2-ancestor': ({'proc/self/cgroup': '0::/a/b\n',
+                     'sys/fs/cgroup/a/b/cpu.max': 'max 100000\n',
+                     'sys/fs/cgroup/a/cpu.max': '150000 100000\n'}, 2),
+    'v1': ({'proc/self/cgroup': '4:cpu,cpuacct:/x\n3:memory:/x\n0::/\n',
+            'sys/fs/cgroup/cpu,cpuacct/x/cpu.cfs_quota_us': '400000\n',
+            'sys/fs/cgroup/cpu,cpuacct/x/cpu.cfs_period_us': '100000\n'},
+           4),
+    'v1-unset': ({'proc/self/cgroup': '1:cpu:/\n0::/\n',
+                  'sys/fs/cgroup/cpu/cpu.cfs_quota_us': '-1\n',
+                  'sys/fs/cgroup/cpu/cpu.cfs_period_us': '100000\n'},
+                 None),
+    'unreadable': ({}, None),
+}
+
+
+@pytest.mark.parametrize('layout', sorted(_CGROUPS))
+def test_cpu_quota_caps_the_threads(layout, tmp_path, monkeypatch):
+    """threads_for takes no more threads than the cgroup's CPU quota
+    allows, which sched_getaffinity does not see; without a quota, the
+    usable cores."""
+    files, want = _CGROUPS[layout]
+    for name, text in files.items():
+        (tmp_path / name).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / name).write_text(text)
+    got = TNU.quota_cpus(str(tmp_path))
+    assert got == want
+    monkeypatch.setattr(os, 'sched_getaffinity', lambda pid: set(range(8)))
+    monkeypatch.setattr(TNU, 'quota_cpus', lambda: got)
+    assert TNU.threads_for(64 * TNU.MIN_GROUPS_PER_THREAD) == (want or 8)
 
 
 def test_native_codec_source_is_a_copy():

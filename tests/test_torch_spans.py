@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from ld_decode_tpu_torch.io import loaders as TL
+from ld_decode_tpu_torch.io import native_unpack as TNU
 from ld_decode_tpu_torch.models import encode as TE
 from ld_decode_tpu_torch.ops import filters as TF
 from ld_decode_tpu_torch.tbc import cuda_widen as TCW
@@ -184,9 +185,11 @@ def test_the_ring_keeps_the_last_records():
 @pytest.fixture(scope='module')
 def segmented(tmp_path_factory):
     """A segmented decode of 8 frames of a 12-frame .lds file at the
-    smallest segment (8 frames cross a swap), under torch.profiler: the
-    records, the totals, the prefetcher's stats, the unpack seconds it
-    added and the number of segment loads."""
+    smallest segment (8 frames cross a swap), under torch.profiler, on a
+    host of four usable cores: the records, the totals, the prefetcher's
+    stats, the unpack seconds it added, the number of segment loads, the
+    native unpacks (start and end on the spans' clock, threads) and the
+    split unpacks counted."""
     cfg = DecoderConfig(system='NTSC', freq_mhz=40.0)
     samples = TE.encode_frames(cfg, 12, TE.EncodeSpec(pattern='ramp',
                                                       cav_start_frame=900))
@@ -204,18 +207,34 @@ def segmented(tmp_path_factory):
         return set_capture(*a, **k)
 
     pf.set_capture = counted
+    unpacks = []
+    unpack = TNU.unpack_4_40
+
+    def stamped(raw, readlen, offset):
+        t0 = time.perf_counter_ns() + S._OFFSET_NS
+        out = unpack(raw, readlen, offset)
+        unpacks.append((t0, time.perf_counter_ns() + S._OFFSET_NS,
+                        TNU.last_threads))
+        return out
+
     route = TL.unpack_route()
     S.reset()
     before = TL.unpack_seconds[route]
+    split = TL.unpack_threads['split']
     s, frames = START, 0
-    with torch.profiler.profile(activities=CPU), open(path, 'rb') as fd:
+    with pytest.MonkeyPatch.context() as mp, \
+            torch.profiler.profile(activities=CPU), open(path, 'rb') as fd:
+        mp.setattr(TNU, 'unpack_4_40', stamped)
+        mp.setattr(TNU.os, 'sched_getaffinity', lambda pid: set(range(4)))
+        mp.setattr(TNU, 'quota_cpus', lambda: None)
         for i in range(8):
             rv = fr.readframe(fd, s, i == 0)
             assert rv[0] is not None
             s, frames = rv[2], frames + 1
     out = dict(records=S.records(), totals=S.totals(), stats=dict(pf.stats),
                unpack=TL.unpack_seconds[route] - before, loads=len(loads),
-               frames=frames)
+               frames=frames, unpacks=unpacks,
+               split=TL.unpack_threads['split'] - split)
     S.reset()
     return out
 
@@ -236,6 +255,20 @@ def test_each_swap_is_one_span_with_its_parts(segmented):
     for name in ('prefetch.fetch', 'prefetch.unpack', 'prefetch.dispatch'):
         assert {recs[r[3]][0] for r in recs if r[0] == name} \
             <= {'frame', 'prefetch.refill'}
+
+
+def test_each_swap_unpacks_on_threads_inside_its_span(segmented):
+    """Every swap's segment (over twice MIN_GROUPS_PER_THREAD groups) is
+    unpacked split across the four cores, and its `load.unpack` span holds
+    the whole threaded call."""
+    recs = segmented['records']
+    spans_ = [(a, b) for name, a, b, _, _ in recs if name == 'load.unpack']
+    assert TL.unpack_route() == 'native'
+    assert len(spans_) == len(segmented['unpacks']) == segmented['loads']
+    assert segmented['split'] == segmented['loads']
+    for (a, b), (t0, t1, threads) in zip(spans_, segmented['unpacks']):
+        assert threads == 4
+        assert a <= t0 <= t1 <= b
 
 
 def test_the_timers_read_their_spans(segmented):
