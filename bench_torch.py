@@ -16,9 +16,9 @@ visits and the median of every stage's pass rates:
                             -> RGB48 or RGB8, + CX audio on the host, as
                             ldchain_torch.py builds them.
 
-Graphs are on (the CLIs' default) and the combs copy raw RGB to the host
-(codec=False, their default on the card), so a chain stage reports the RGB
-bytes brought to the host where bench.py reports the codec's shipped_u16.
+Graphs are on (the CLIs' default) and the combs copy raw RGB to the host,
+so a chain stage reports the RGB bytes brought to the host where bench.py
+reports its transport codec's shipped_u16.
 
 Left out of bench.py: the link probe (probe_link, d2h_probe_MBps), the
 sleep and recovery after a collapsed link, the re-measures below target
@@ -782,8 +782,8 @@ def main(argv=None):
     head = stages['ntsc']
     headline = median(head.rates)
     extra['ntsc_pass_rates'] = [round(r, 1) for r in head.rates]
-    # the picture transfer the Framer's 'auto' picked (raw on the card)
-    extra['pic_mode'] = head.fr.prefetcher.stats.get('pic_mode')
+    # bench.py's key: the port has one picture transfer, the raw copy
+    extra['pic_mode'] = 'raw'
     for key, st in stages.items():
         if key != 'ntsc' and st.rates:
             extra[f'{key}_MSa_s'] = round(median(st.rates), 2)

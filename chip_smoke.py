@@ -125,20 +125,6 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      graphs=False bit for bit, K1 counts equal, host ms a call both ways
      (no collective runs in a world of one rank, so NCCL inside a capture
      is not shown on one card); the 2-rank gloo world runs eagerly;
- 23. the transport codecs (tbc/codec.py; csrc/codec_decode.cpp built with
-     g++): the NTSC and PAL captures decoded at batch 16 with pic_mode
-     'codec' and 'raw' -- equal frames, no raw fallback, every field on
-     the native decode route, K1 counted on the codec decode; pic_mode
-     'auto' resolves to raw on the card; one codec batch dispatched under
-     sync-debug "error", its payload equal to the CPU's encode of the same
-     picture (tables, counts, used prefixes); the encode's device time a
-     batch, the shipped ratio, the device-to-host rate and the link rate
-     below which the codec pays; one NTSC (flow) and one PAL (dim 3)
-     comb window with codec=True equal to codec=False, RGB48 and out8, no
-     decode fallback, the RGB encode's device time a window; 4 windows of
-     4 frames a comb with the encode graphed (the default) and eager,
-     frames and words bit-equal, the encode's host and device ms a window
-     both ways;
  24. the legacy PAL comb (comb/comb_pal_legacy.py, eager: phase 29 holds
      its graphs): two seeded synthetic 1052x610 frames at dims 1, 2 and 3
      on the card vs the CPU (max 2,
@@ -148,8 +134,7 @@ Phases, in order (any failure exits nonzero; there is no CPU fallback):
      6 chained NTSC and PAL batch calls through a GraphCache, every
      output and chained scalar bit-equal, one call's device operations
      and host launch calls and host time both ways; the NTSC and PAL
-     decode paths and one NTSC --pic-mode codec decode with Framer(graphs=
-     False) and the default graphs, the .tbc frames, .pcm audio and every
+     decode paths with Framer(graphs=False) and the default graphs, the .tbc frames, .pcm audio and every
      field's line locations, burst levels and VBI bit-equal, K1 launches
      equal; the NTSC chain with flow over phase 4's capture played twice,
      RGB48 frames and words bit-equal, K1 and K2 launches equal; the
@@ -3156,33 +3141,12 @@ def mesh_phase(torch, np, cfg, cap, pcfg, pcap, d: str):
     return launches
 
 
-# phase 23: the transport codecs.  The decodes run CODEC_FRAMES frames from
-# a locked start, once a picture mode; one comb window of 4 frames a system
-CODEC_FRAMES = 16
-CODEC_REPS = 5
-CODEC_ENCODES = 20      # encodes a window timed by the host clock
+# the device time of a call: the median of EVENT_REPS calls timed by CUDA
+# events, after one warm-up call
+EVENT_REPS = 5
 
 
-def _decode_frames(torch, FR, cfg, bank, cap, p, mode, n):
-    """n frames of `cap` through Framer(batch=16, pic_mode=mode) from the
-    decode path's locked start: (frames, line-0 words kept, prefetcher
-    stats, seconds)."""
-    fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=p['nblocks'],
-                   device='cuda', pic_mode=mode)
-    frames, sample = [], p['start']
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(n):
-        rv = fr.readframe(None, sample, i == 0)
-        if rv[0] is None:
-            break
-        frames.append(rv[0])
-        sample = rv[2]
-    torch.cuda.synchronize()
-    return frames, fr.prefetcher.stats, time.perf_counter() - t0
-
-
-def _event_median_ms(torch, fn, reps: int = CODEC_REPS) -> float:
+def _event_median_ms(torch, fn, reps: int = EVENT_REPS) -> float:
     fn()
     torch.cuda.synchronize()
     times = []
@@ -3195,231 +3159,6 @@ def _event_median_ms(torch, fn, reps: int = CODEC_REPS) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
-
-
-def codec_phase(torch, np, systems):
-    """systems: {name: (cfg, cap, bank)}.  Returns K1's launches on the
-    codec decode of each system and the numbers PERF.md keeps."""
-    phase('23 codecs: --pic-mode codec vs raw, card vs cpu encode, the RGB '
-          'codec')
-    from ld_decode_tpu_torch.comb import batch as CB
-    from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig
-    from ld_decode_tpu_torch.comb.comb_pal import CombPALConfig
-    from ld_decode_tpu_torch.tbc import codec as CODEC
-    from ld_decode_tpu_torch.tbc import cuda_resample as CR
-    from ld_decode_tpu_torch.tbc import framer as FR
-    from ld_decode_tpu_torch.tbc import fused as FU
-    from ld_decode_tpu_torch.tbc import native_codec as NC
-    from ld_decode_tpu_torch.tbc import pipeline as PL
-    if not NC.available():
-        fail('the native codec decoder (csrc/codec_decode.cpp) did not '
-             'build with g++')
-    link = PL.probed_link_rate('cuda')
-    print(f'device-to-host link: {link:.1f} MB/s (pinned copies of 64 MB)')
-    k1, res = {}, {'link_MBps': link}
-    for system, (cfg, cap, bank) in systems.items():
-        p = DECODE_PATHS[system]
-        # raw, codec, codec, raw: the pairs' rates compare warm runs
-        raw = _decode_frames(torch, FR, cfg, bank, cap, p, 'raw',
-                             CODEC_FRAMES)
-        CR.resample_lines_batch.launches = 0
-        cod = _decode_frames(torch, FR, cfg, bank, cap, p, 'codec',
-                             CODEC_FRAMES)
-        k1[system] = CR.resample_lines_batch.launches
-        cod2 = _decode_frames(torch, FR, cfg, bank, cap, p, 'codec',
-                              CODEC_FRAMES)
-        raw2 = _decode_frames(torch, FR, cfg, bank, cap, p, 'raw',
-                              CODEC_FRAMES)
-        spf = cfg.freq_hz / cfg.sys.fps
-        rates = [len(r[0]) * spf / r[2] / 1e6 for r in (raw, cod, cod2,
-                                                          raw2)]
-        print(f'{system} decode MSa/s (raw, codec, codec, raw): '
-              + ', '.join(f'{x:.2f}' for x in rates))
-        auto = FR.Framer(cfg, bank, capture=cap[:4 << 20], batch=16,
-                         nblocks=p['nblocks'], device='cuda')
-        auto.prefetcher._use_codec()
-        st = cod[1]
-        per = p['k1_per_batch']
-        expect = per * (st['batches'] + st['seq_decoded'])
-        ratio = st['shipped_u16'] / st['raw_u16']
-        print(f'{system}: {len(cod[0])} frames codec {cod[2]:.3f} s, raw '
-              f'{raw[2]:.3f} s; codec stats: batches {st["batches"]}, '
-              f'decodes native {st["pic_decode_native"]} numpy '
-              f'{st["pic_decode_numpy"]}, raw fallback '
-              f'{st["pic_raw_fallback"]}, top-ups {st["pic_topups"]}, '
-              f'shipped {st["shipped_u16"]} of {st["raw_u16"]} u16 words '
-              f'({ratio:.4f}); K1 launches {k1[system]} (expected '
-              f'{expect}); auto resolves to '
-              f'{auto.prefetcher.stats["pic_mode"]}')
-        if any(len(r[0]) != CODEC_FRAMES or any(
-                not np.array_equal(a, b) for a, b in zip(r[0], raw[0]))
-                for r in (cod, cod2, raw2)):
-            fail(f'{system}: --pic-mode codec .tbc differs from raw')
-        if st['pic_raw_fallback'] or st['pic_decode_numpy'] \
-                or not st['pic_decode_native']:
-            fail(f'{system}: codec route not clean: {st}')
-        if k1[system] != expect or not k1[system]:
-            fail(f'{system}: K1 launches {k1[system]}, expected {expect}')
-        if auto.prefetcher.stats['pic_mode'] != 'raw':
-            fail(f'auto picked the codec on the card (link {link:.1f} '
-                 f'MB/s, threshold {PL.RAW_PIC_MBPS})')
-        del auto
-
-        # one codec batch: the card's encode against the CPU's, a sync-free
-        # dispatch, and the encode's device time
-        fr = FR.Framer(cfg, bank, capture=cap, batch=16,
-                       nblocks=p['nblocks'], device='cuda')
-        f0, rs0, _ = fr.readfield(None, p['start'])
-        rs0 = int(f0.readsample if f0.readsample >= 0 else rs0)
-        n_audio1 = p['nblocks'] * bank.a_stage1_keep
-        pitch = int(round(cfg.freq_hz / cfg.sys.fps / 2))
-        dev = fr.prefetcher.capture.device
-        args = (fr.prefetcher.capture,
-                torch.full((), rs0, dtype=torch.int32, device=dev),
-                torch.full((), 0.0, dtype=torch.float32, device=dev),
-                torch.full((), 1.0, dtype=torch.float32, device=dev), bank,
-                cfg, p['nblocks'], n_audio1, 16, pitch)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode('error')
-        try:
-            out, _, _ = FU.field_pipeline_batch(*args, codec=True)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        got = {k: v.cpu().numpy() for k, v in out.items()
-               if k in ('pic_tab', 'dense', 'dense_q', 'rows2')}
-        want = {k: v.numpy() for k, v in CODEC.encode_picture_payload(
-            out['picture'].cpu(), cfg).items()}
-        rows2 = want['rows2']
-        n, nq = int(rows2[0].sum()), int(rows2[1].sum())
-        same = (np.array_equal(got['rows2'], rows2)
-                and np.array_equal(got['pic_tab'], want['pic_tab'])
-                and np.array_equal(got['dense'][:n], want['dense'][:n])
-                and np.array_equal(got['dense_q'][:nq], want['dense_q'][:nq]))
-        pic = out['picture']
-        enc_ms = _event_median_ms(
-            torch, lambda: CODEC.encode_picture_payload(pic, cfg))
-        raw_bytes = pic.numel() * pic.element_size()
-        coded = 2 * (n + nq + want['pic_tab'].size)
-        thresh = (raw_bytes - coded) / 1e6 / (enc_ms / 1e3)
-        print(f'{system} batch of 16: card encode == cpu encode '
-              f'(tables, counts, used prefixes {n} + {nq} words): {same}; '
-              f'dispatch under sync-debug "error": no host sync; encode '
-              f'{enc_ms:.4f} ms (CUDA events, median of {CODEC_REPS}); raw '
-              f'copy {raw_bytes} bytes (int32), coded {coded} bytes '
-              f'({coded / raw_bytes:.4f}); codec pays below {thresh:.1f} '
-              f'MB/s; link {link:.1f} MB/s')
-        if not same:
-            fail(f'{system}: the card\'s codec encode differs from the CPU\'s')
-        res[system] = dict(encode_ms=enc_ms, ratio=ratio,
-                           batch_ratio=coded / raw_bytes, threshold=thresh,
-                           msa_s=rates)
-        del fr, out, pic
-
-        # one comb window, codec against raw, RGB48 and out8
-        frames = torch.from_numpy(np.stack(cod[0][:4]).astype(np.int32))
-        for out8 in (False, True):
-            outs = {}
-            for codec in (False, True):
-                if system == 'NTSC':
-                    comb = CB.NTSCCombBatch(CombConfig(), out8=out8,
-                                            device='cuda', codec=codec)
-                else:
-                    comb = CB.PALCombBatch(CombPALConfig(dim=3), out8=out8,
-                                           device='cuda', codec=codec)
-                rgb, words = comb.collect(comb.feed(frames.cuda()))
-                if system == 'PAL':
-                    rgb.append(comb.flush())
-                outs[codec] = (rgb, words, comb.stats)
-            (r0, w0, _), (r1, w1, st1) = outs[False], outs[True]
-            rgb_t = torch.from_numpy(np.stack(r1).astype(np.int32)).cuda()
-            E, rows, W, _ = rgb_t.shape
-            img = CODEC.pad_to_blocks(rgb_t.movedim(3, 1).reshape(
-                E, 3 * rows, W))
-            wenc = _event_median_ms(torch, lambda: CODEC.encode_image_payload(
-                img, 1, hpass=not out8))
-            wratio = st1['shipped_u16'] / (len(r1) * rows * W * 3)
-            print(f'{system} comb window ({len(r1)} frames, '
-                  f'{"out8" if out8 else "RGB48"}): codec == raw '
-                  f'{all(np.array_equal(a, b) for a, b in zip(r0, r1))}, '
-                  f'decode fallback {st1["rgb_decode_fallback"]}, native '
-                  f'{st1["rgb_decode_native"]}; encode {wenc:.4f} ms a window '
-                  f'({E} frames); shipped {wratio:.4f} of raw u16')
-            if len(r0) != len(r1) or not r1 or any(
-                    a.dtype != b.dtype or not np.array_equal(a, b)
-                    for a, b in zip(r0, r1)) or any(
-                    not np.array_equal(a, b) for a, b in zip(w0, w1)):
-                fail(f'{system} comb: codec=True differs from codec=False')
-            if st1['rgb_decode_fallback'] or st1['rgb_decode_numpy']:
-                fail(f'{system} comb: RGB codec route not clean: {st1}')
-            res[f'{system} comb {"out8" if out8 else "rgb48"}'] = dict(
-                encode_ms=wenc, frames=E, ratio=wratio,
-                graphs=_codec_comb_graphs(torch, np, CB, system, out8,
-                                          cod[0]))
-    return k1, res
-
-
-def _codec_comb_graphs(torch, np, CB, system, out8, frames) -> dict:
-    """The comb's codec=True RGB encode, graphed (the default) against
-    eager: 4 windows of 4 of the decoded frames through each comb (NTSC
-    flow, PAL dim 3), every frame and word bit-equal; the encode key's
-    counts; the encode alone a window (the last window's RGB) both ways,
-    host ms (wall clock over CODEC_ENCODES calls, synchronised at the end)
-    and device ms (CUDA events)."""
-    from ld_decode_tpu_torch.comb.comb_ntsc import CombConfig
-    from ld_decode_tpu_torch.comb.comb_pal import CombPALConfig
-    from ld_decode_tpu_torch.utils.graphs import GraphCache
-    win = torch.from_numpy(np.stack(frames[:16]).astype(np.int32)).cuda()
-    outs = {}
-    for graphs in (False, True):
-        if system == 'NTSC':
-            comb = CB.NTSCCombBatch(CombConfig(), out8=out8, device='cuda',
-                                    codec=True, graphs=graphs)
-        else:
-            comb = CB.PALCombBatch(CombPALConfig(dim=3), out8=out8,
-                                   device='cuda', codec=True, graphs=graphs)
-        handles = [comb.feed(win[k:k + 4]) for k in range(0, 16, 4)]
-        rgb, words = [], []
-        for h in handles:
-            r, w = comb.collect(h)
-            rgb += r
-            words += w
-        outs[graphs] = (rgb, words, comb)
-    (re_, we, _), (rg, wg, cg) = outs[False], outs[True]
-    same = len(re_) == len(rg) > 0 and all(
-        np.array_equal(a, b) for a, b in zip(re_ + we, rg + wg)
-        if a is not None)
-    enc = {k: n for k, n in cg.graphs.capture_seconds.items()
-           if k[0][0] == 'rgb_encode'}
-    last = torch.from_numpy(np.stack(rg[-4:]).astype(np.int32)).cuda()
-    if out8:
-        last = last << 8
-    cache = GraphCache('cuda')
-    timing = {}
-    for name, fn in (('eager', lambda: CB._rgb_encode(last, out8)),
-                     ('graphed', lambda: cache(
-                         ('rgb_encode', out8),
-                         lambda x: CB._rgb_encode(x, out8), (last,)))):
-        ev = _event_median_ms(torch, fn)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(CODEC_ENCODES):
-            fn()
-        torch.cuda.synchronize()
-        timing[name] = dict(event_ms=ev, wall_ms=(time.perf_counter() - t0)
-                            / CODEC_ENCODES * 1e3)
-    print(f'{system} comb codec=True {"out8" if out8 else "RGB48"}, graphed '
-          f'vs eager over 4 windows of 4 frames: {len(rg)} frames and words '
-          f'{"bit-equal" if same else "DIFFER"}; encode key captures '
-          f'{len(enc)} ({list(enc.values())} s), decode fallback '
-          f'{cg.stats["rgb_decode_fallback"]}, top-ups '
-          f'{cg.stats["rgb_topups"]}; the encode a 4-frame window: eager '
-          f'{timing["eager"]["wall_ms"]:.3f} ms host, '
-          f'{timing["eager"]["event_ms"]:.3f} ms events; graphed '
-          f'{timing["graphed"]["wall_ms"]:.3f} ms host, '
-          f'{timing["graphed"]["event_ms"]:.3f} ms events')
-    if not same or not enc or cg.stats['rgb_decode_fallback']:
-        fail(f'{system} comb: the graphed codec encode differs from eager')
-    return dict(timing, capture_s=list(enc.values()))
 
 
 # phase 24: the legacy PAL comb, card vs CPU: the CPU test's budget against
@@ -3485,7 +3224,7 @@ def legacy_comb_phase(torch, np):
         res[dim] = _event_median_ms(
             torch, lambda: LG.comb_pal_legacy_frame(raw, cfg, graphs=False))
         print(f'dim {dim}: {res[dim]:.4f} ms a frame on the card (CUDA '
-              f'events, median of {CODEC_REPS})')
+              f'events, median of {EVENT_REPS})')
     return res
 
 
@@ -3557,7 +3296,7 @@ def _graph_batches(torch, np, FU, G, cfg, bank, cap_t, start, nblk, mode):
     return outs, prof, cache
 
 
-def _graph_decode(torch, np, FR, CR, cfg, bank, cap, p, graphs, pic_mode):
+def _graph_decode(torch, np, FR, CR, cfg, bank, cap, p, graphs):
     """The decode path's frames through Framer(batch 16, graphs=...):
     frames, audio and each field's line locations, burst levels and VBI,
     K1 launches, the rate and t_dispatch a batch over the whole run and
@@ -3566,7 +3305,7 @@ def _graph_decode(torch, np, FR, CR, cfg, bank, cap, p, graphs, pic_mode):
     torch.cuda.reset_peak_memory_stats()
     CR.resample_lines_batch.launches = 0
     fr = FR.Framer(cfg, bank, capture=cap, batch=16, nblocks=p['nblocks'],
-                   device='cuda', pic_mode=pic_mode, graphs=graphs)
+                   device='cuda', graphs=graphs)
     st = fr.prefetcher.stats
     frames, audio, fields = [], [], []
     sample = p['start']
@@ -3685,48 +3424,43 @@ def graphs_phase(torch, np, systems):
     from ld_decode_tpu_torch.tbc import fused as FU
     from ld_decode_tpu_torch.utils import graphs as G
     res = {}
-    runs = (('NTSC', 'raw'), ('PAL', 'raw'), ('NTSC', 'codec'))
-    for system, pic_mode in runs:
+    for system in ('NTSC', 'PAL'):
         cfg, cap, bank = systems[system]
         p = DECODE_PATHS[system]
-        label = f'{system} decode' + (' --pic-mode codec'
-                                      if pic_mode == 'codec' else '')
-        if pic_mode == 'raw':
-            # the batch call alone: every batch's outputs and chained
-            # scalars, eager against replayed
-            cap_t = FR.to_device_capture(cap, 'cuda')
-            fr = FR.Framer(cfg, bank, capture=cap, batch=16,
-                           nblocks=p['nblocks'], device='cuda', graphs=False)
-            f0, rs0, _ = fr.readfield(None, p['start'])
-            rs0 = int(f0.readsample if f0.readsample >= 0 else rs0)
-            del fr
-            be, pe, _ = _graph_batches(torch, np, FU, G, cfg, bank, cap_t,
-                                       rs0, p['nblocks'], 'eager')
-            bg, pg, cache = _graph_batches(torch, np, FU, G, cfg, bank,
-                                           cap_t, rs0, p['nblocks'], None)
-            _same(np, f'{system} batch outputs', be, bg)
-            if not be[0]['meta_i'][:, 0].all():
-                fail(f'{system}: the chained batches hold invalid fields')
-            print(f'{system} batch call, {GRAPH_BATCHES} chained batches of '
-                  f'16 fields: every output and chained scalar bit-equal '
-                  f'(graphs {cache.counts}, capture '
-                  f'{sum(cache.capture_seconds.values()):.3f} s); one call '
-                  f'eager: {pe["device_ops"]} device ops, '
-                  f'{pe["kernel_launch_calls"]} kernel launch calls, '
-                  f'{pe["host_ms"]:.3f} ms of host time; replayed: '
-                  f'{pg["device_ops"]} device ops, '
-                  f'{pg["kernel_launch_calls"]} kernel launch calls, '
-                  f'{pg["graph_launch_calls"]} graph launch, '
-                  f'{pg["host_ms"]:.3f} ms of host time')
-            if pg['graph_launch_calls'] != 1:
-                fail(f'{system}: the replayed call made '
-                     f'{pg["graph_launch_calls"]} graph launches')
-            res[f'{system} ops'] = dict(eager=pe, graphs=pg)
-            del cap_t
-        e = _graph_decode(torch, np, FR, CR, cfg, bank, cap, p, False,
-                          pic_mode)
-        g = _graph_decode(torch, np, FR, CR, cfg, bank, cap, p, True,
-                          pic_mode)
+        label = f'{system} decode'
+        # the batch call alone: every batch's outputs and chained
+        # scalars, eager against replayed
+        cap_t = FR.to_device_capture(cap, 'cuda')
+        fr = FR.Framer(cfg, bank, capture=cap, batch=16,
+                       nblocks=p['nblocks'], device='cuda', graphs=False)
+        f0, rs0, _ = fr.readfield(None, p['start'])
+        rs0 = int(f0.readsample if f0.readsample >= 0 else rs0)
+        del fr
+        be, pe, _ = _graph_batches(torch, np, FU, G, cfg, bank, cap_t,
+                                   rs0, p['nblocks'], 'eager')
+        bg, pg, cache = _graph_batches(torch, np, FU, G, cfg, bank,
+                                       cap_t, rs0, p['nblocks'], None)
+        _same(np, f'{system} batch outputs', be, bg)
+        if not be[0]['meta_i'][:, 0].all():
+            fail(f'{system}: the chained batches hold invalid fields')
+        print(f'{system} batch call, {GRAPH_BATCHES} chained batches of '
+              f'16 fields: every output and chained scalar bit-equal '
+              f'(graphs {cache.counts}, capture '
+              f'{sum(cache.capture_seconds.values()):.3f} s); one call '
+              f'eager: {pe["device_ops"]} device ops, '
+              f'{pe["kernel_launch_calls"]} kernel launch calls, '
+              f'{pe["host_ms"]:.3f} ms of host time; replayed: '
+              f'{pg["device_ops"]} device ops, '
+              f'{pg["kernel_launch_calls"]} kernel launch calls, '
+              f'{pg["graph_launch_calls"]} graph launch, '
+              f'{pg["host_ms"]:.3f} ms of host time')
+        if pg['graph_launch_calls'] != 1:
+            fail(f'{system}: the replayed call made '
+                 f'{pg["graph_launch_calls"]} graph launches')
+        res[f'{system} ops'] = dict(eager=pe, graphs=pg)
+        del cap_t
+        e = _graph_decode(torch, np, FR, CR, cfg, bank, cap, p, False)
+        g = _graph_decode(torch, np, FR, CR, cfg, bank, cap, p, True)
         _same(np, f'{label} .tbc frames', e['frames'], g['frames'])
         _same(np, f'{label} .pcm audio', e['audio'], g['audio'])
         _same(np, f'{label} fields', e['fields'], g['fields'])
@@ -4843,10 +4577,6 @@ def run(torch, np, work: str):
                                              device='cuda')),
         'PAL': (pcfg, pcap, F.make_demod_bank(pcfg, np.complex64,
                                               device='cuda'))}
-    codec_k1, codec_res = codec_phase(torch, np, systems)
-    print('codec comb encode graphs vs eager', json.dumps(
-        {k: v['graphs'] for k, v in codec_res.items()
-         if isinstance(v, dict) and 'graphs' in v}))
     legacy_comb_phase(torch, np)
     graphs = graphs_phase(torch, np, systems)
     print('graphs vs eager', json.dumps(graphs))
@@ -4876,9 +4606,7 @@ def run(torch, np, work: str):
           f'file {k3["launches"]}, ldexport {two["k3"]}; K1 in the sharded '
           f'decode: NTSC {sharded["NTSC"]} + burst window '
           f'{sharded["NTSC burst window"]}, PAL {sharded["PAL"]} (ranks '
-          f'summed, by world size); K1 on the --pic-mode codec decode: '
-          f'NTSC {codec_k1["NTSC"]}, PAL {codec_k1["PAL"]}; K1 in the '
-          f'segmented file decode (graphed): NTSC {seg_k1["NTSC"]}, PAL '
+          f'summed, by world size); K1 in the segmented file decode (graphed): NTSC {seg_k1["NTSC"]}, PAL '
           f'{seg_k1["PAL"]}')
     # the sharded decode is this slice's path: its `launches` are the
     # 2-rank world's, summed over the ranks
@@ -4896,8 +4624,7 @@ def run(torch, np, work: str):
                 'ldview graphs': seq_launches['ldview graphs'],
                 'ldview': two['k1_view'], 'pal decode': pal_launches,
                 'pal chain': pal_k1, 'ntsc decode': launches,
-                'ntsc chain': k1, 'ntsc codec decode': codec_k1['NTSC'],
-                'pal codec decode': codec_k1['PAL'],
+                'ntsc chain': k1,
                 'ntsc segmented file graphs': seg_k1['NTSC'],
                 'pal segmented file graphs': seg_k1['PAL'],
                 'sharded decode': {f'{s.lower()} {w} rank{"s" * (w > 1)}': n
@@ -4924,14 +4651,6 @@ def run(torch, np, work: str):
         dict(name='resample_lines_batch[pal finish batch]',
              shape='pal field_finish_batch picture (16, 313, 1135)',
              launches=seq_launches['PAL finish batch'], **k1_common,
-             **kres['K1']['pal-width picture']),
-        dict(name='resample_lines_batch[ntsc codec]',
-             shape='ntsc picture (16, 263, 910), --pic-mode codec',
-             launches=codec_k1['NTSC'], **k1_common,
-             **kres['K1']['ntsc picture']),
-        dict(name='resample_lines_batch[pal codec]',
-             shape='pal picture (16, 313, 1135), --pic-mode codec',
-             launches=codec_k1['PAL'], **k1_common,
              **kres['K1']['pal-width picture']),
         dict(name='resample_lines_batch[ntsc segmented]',
              shape='ntsc picture (16, 263, 910), segmented file, graphed',

@@ -29,18 +29,12 @@ simple window (dims 1/2), each after the burst AGC's host loop, whose
 levels are a dynamic input and whose carry stays on the host; PAL's
 simple and 3D windows, frame 0's 2D head and the 2D flush frame.
 
-The RGB48 output stays an int32 tensor until `collect`, which copies it to
-the host as np.uint16 (np.uint8 with out8).  With codec=True the window's
-RGB crosses instead as the lossless codec's payload (JAX's `_rgb_encode`
-and `_RgbCodecMixin`: planar, k=1, the horizontal pass on RGB48 and not
-on out8), the used prefixes copied and decoded on the host; a frame whose
-payload fails the consistency gate comes out black, counted in
-stats['rgb_decode_fallback'] with a warning.  JAX's default is codec=True
-(its tunnel); the port's is False: the raw copy is the cheaper one on the
-card (chip_smoke.py phase 23 times the encode a window on an NVIDIA H100;
-PERF.md).  The encode (JAX's jitted `_rgb_encode`) replays as one CUDA
-graph a window shape and output depth through the comb's cache, as does
-the raw path's cut to 8 bits (`_to_rgb8`).
+The RGB48 output is an int32 tensor on the device (with out8 cut to its
+top bytes there by `_to_rgb8`, one CUDA graph a window shape through the
+comb's cache).  Its copy to the host starts as the window's replay is
+queued, pinned and asynchronous on the card
+(`utils/device.py::to_host_async`); `collect` waits on its event and
+returns the frames as np.uint16 (np.uint8 with out8).
 `CombWindows` is the chain's loop over windows, shared by
 ldchain_torch.py, bench_torch.py, chip_smoke.py and
 scripts/profile_torch.py.
@@ -55,8 +49,6 @@ and their conversion on the host.  `stats` counts `frames_fed`,
 
 from __future__ import annotations
 
-import concurrent.futures
-import os
 import time
 from collections import deque
 from typing import Callable, Deque, List, Optional, Tuple, Union
@@ -70,8 +62,6 @@ from ld_decode_tpu_torch.comb.comb_ntsc import (
 from ld_decode_tpu_torch.comb.comb_pal import (PAL_X, PAL_Y, CombPALConfig,
                                                comb_core, prepare_frames)
 from ld_decode_tpu_torch.comb.optflow import farneback
-from ld_decode_tpu_torch.tbc import codec as CODEC
-from ld_decode_tpu_torch.utils import log
 from ld_decode_tpu_torch.utils.device import DEFAULT as DEFAULT_DEVICE
 from ld_decode_tpu_torch.utils.device import resolve as resolve_device
 from ld_decode_tpu_torch.utils.device import to_host_async
@@ -134,17 +124,6 @@ def _to_rgb8(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb >> 8).to(torch.uint8)
 
 
-def _rgb_encode(rgb: torch.Tensor, out8: bool):
-    """A window's (E, rows, W, 3) RGB48 -> the RGB codec's payload (JAX's
-    `_rgb_encode`): planar, k=1, the horizontal pass on RGB48; with out8
-    the top byte only, without the horizontal pass."""
-    if out8:
-        rgb = rgb >> 8
-    E, rows, W, _ = rgb.shape
-    img = CODEC.pad_to_blocks(rgb.movedim(3, 1).reshape(E, 3 * rows, W))
-    return CODEC.encode_image_payload(img, 1, hpass=not out8)
-
-
 def _window_tensor(frames, device, lines: int, width: int) -> torch.Tensor:
     """A feed's frames (a tensor, or a numpy array of 16-bit samples) as
     an (N, lines, width) tensor on `device`."""
@@ -153,110 +132,51 @@ def _window_tensor(frames, device, lines: int, width: int) -> torch.Tensor:
     return frames.to(device).reshape(-1, lines, width)
 
 
-class _RgbCodecMixin:
-    """The windows' copies to the host, raw or through the RGB codec.  A
-    handle is (kind, host copies, event, payload)."""
+class _RawCopies:
+    """The windows' raw copies to the host, shared by the batched combs.
+    A handle is (host copies, event)."""
 
-    def _init_copies(self, out8: bool, codec: bool):
+    def _init_copies(self, out8: bool):
         self.out8 = out8        # comb -8: top byte only
-        self.codec = codec
-        self._prefixes = CODEC.PrefixCopies()
-        self._decode_ex = None
         self.stats = {'t_feed': 0.0, 'windows': 0, 'frames_fed': 0,
                       'frames_emitted': 0, 't_collect': 0.0}
-        if codec:
-            self.stats.update(rgb_decode_fallback=0, rgb_decode_native=0,
-                              rgb_decode_numpy=0, rgb_topups=0,
-                              shipped_u16=0, frames_out=0)
 
     def _send(self, rgb: torch.Tensor, extra: dict):
         """Start the copies of a window's (E, rows, W, 3) RGB and `extra`
         tensors; on the card they run asynchronously after the comb."""
         self.stats['windows'] += 1
-        if not self.codec:
-            if self.out8:
-                rgb = self.graphs(('rgb8',), _to_rgb8, (rgb,))
-            return ('raw',) + to_host_async({'rgb': rgb, **extra}) + (None,)
-        E, rows, W, _ = rgb.shape
-        out8 = self.out8
-        pay = self.graphs(('rgb_encode', out8),
-                          lambda x: _rgb_encode(x, out8), (rgb,))
-        if self.graphs.aliased:
-            # replayed, the payload is the graph's static tensors: the
-            # copies below are queued next on the stream, but a top-up at
-            # collect reads the dense buffers after later windows' replays
-            pay = dict(pay, dense=pay['dense'].clone(),
-                       dense_q=pay['dense_q'].clone())
-        copies = {'tab': pay['tab'], 'rows2': pay['rows2'], **extra}
-        self._prefixes.start(copies, pay['dense'], pay['dense_q'])
-        return ('codec',) + to_host_async(copies) + (
-            (pay['dense'], pay['dense_q'], E, rows, W),)
+        if self.out8:
+            rgb = self.graphs(('rgb8',), _to_rgb8, (rgb,))
+        return to_host_async({'rgb': rgb, **extra})
 
     def _receive(self, handle):
         """Wait for a window's copies: (RGB frames as np.uint16, or np.uint8
         with out8, the other host arrays).  The `comb.collect` span, timed
         in stats['t_collect']; the frames count in stats['frames_emitted']."""
         with span('comb.collect') as sp:
-            kind, host, event, payload = handle
+            host, event = handle
             if event is not None:
                 event.synchronize()
             data = {k: v.numpy() for k, v in host.items()}
-            if kind == 'raw':
-                rgb = data.pop('rgb')
-                rgb = list(rgb if self.out8 else rgb.astype(np.uint16))
-            else:
-                rgb = self._decode_window(data, *payload)
+            rgb = data.pop('rgb')
+            rgb = list(rgb if self.out8 else rgb.astype(np.uint16))
         self.stats['t_collect'] += sp.seconds
         self.stats['frames_emitted'] += len(rgb)
         return rgb, data
 
-    def _decode_window(self, data, dense, dense_q, E, rows, W):
-        rows2 = data['rows2'].astype(np.int64)
-        before = self._prefixes.topups
-        dv, qv = self._prefixes.finish(data, dense, dense_q, rows2)
-        self.stats['rgb_topups'] += self._prefixes.topups - before
-        self.stats['shipped_u16'] += int(rows2.sum()) + data['tab'].size
-        self.stats['frames_out'] += E
-        shape = (3 * rows, -(-W // CODEC.CODEC_BW) * CODEC.CODEC_BW)
-        if self._decode_ex is None:
-            self._decode_ex = concurrent.futures.ThreadPoolExecutor(
-                max_workers=min(8, os.cpu_count() or 1))
-        frames = []
-        for img, route in CODEC.decode_batch(
-                data['tab'].view(np.uint16), dv, qv, rows2, shape, 1,
-                not self.out8, self._decode_ex):
-            if route is not None:
-                self.stats[f'rgb_decode_{route}'] += 1
-            if img is None:
-                self._note_decode_fallback()
-                img = np.zeros(shape, np.uint16)
-            rgb = np.ascontiguousarray(
-                np.moveaxis(img[:, :W].reshape(3, rows, W), 0, 2))
-            frames.append(rgb.astype(np.uint8) if self.out8 else rgb)
-        return frames
 
-    def _note_decode_fallback(self):
-        """A frame that failed the gate goes out black: counted, and said
-        once, since a silently black frame must be visible to callers."""
-        self.stats['rgb_decode_fallback'] += 1
-        if self.stats['rgb_decode_fallback'] == 1:
-            log.warning('RGB codec consistency gate failed; emitting a '
-                        'black frame (see stats["rgb_decode_fallback"])')
-
-
-class NTSCCombBatch(_RgbCodecMixin):
+class NTSCCombBatch(_RawCopies):
     """Batched NTSC comb: `feed(frames)` combs a window, `collect(handle)`
     returns (rgb_list, words_list).  The debug surfaces (-D/-k/-l) stay on
     the streaming NTSCComb."""
 
     def __init__(self, cfg: CombConfig = CombConfig(), out8: bool = False,
-                 device=DEFAULT_DEVICE, codec: bool = False,
+                 device=DEFAULT_DEVICE,
                  graphs: Union[bool, GraphCache] = True):
-        """codec=True sends the RGB through the lossless codec (module
-        docstring).  graphs=True (the default) replays each window's
-        device program (flow, ring or simple) as one CUDA graph per window
-        length on the card (utils/graphs.py; eager on the CPU);
-        graphs=False runs it eagerly; a GraphCache is used as given."""
+        """graphs=True (the default) replays each window's device program
+        (flow, ring or simple) as one CUDA graph per window length on the
+        card (utils/graphs.py; eager on the CPU); graphs=False runs it
+        eagerly; a GraphCache is used as given."""
         if cfg.has_debug:
             raise ValueError('debug surfaces need the streaming NTSCComb')
         self.cfg = cfg
@@ -267,7 +187,7 @@ class NTSCCombBatch(_RgbCodecMixin):
                                  dtype=torch.float32, device=self.device)
         self.aburstlev = -1.0
         self._started = False
-        self._init_copies(out8, codec)
+        self._init_copies(out8)
 
     def feed(self, frames):
         """frames: (N, IN_Y*IN_X) or (N, IN_Y, IN_X) 16-bit samples, a
@@ -285,9 +205,9 @@ class NTSCCombBatch(_RgbCodecMixin):
     def _feed(self, dev: torch.Tensor):
         cfg = self.cfg
         # replayed, the outputs are the graph's static tensors: the RGB
-        # and the words are copied out (or encoded) next on the stream, and
-        # the flow carry is read only by the next window's copy into its
-        # static input, before that window's replay
+        # and the words are copied out next on the stream, and the flow
+        # carry is read only by the next window's copy into its static
+        # input, before that window's replay
         if cfg.dim < 3:
             if not dev.shape[0]:
                 return None
@@ -367,24 +287,23 @@ def _pal_window_3d(win: torch.Tensor, cfg: CombPALConfig):
     return comb_core(f[1:-1], cfg, f[:-2], f[2:])[0]
 
 
-class PALCombBatch(_RgbCodecMixin):
+class PALCombBatch(_RawCopies):
     """Batched PAL comb with NTSCCombBatch's feed/collect protocol;
     `collect` returns (rgb_list, [None] * n): PAL frames carry no pulldown
-    words.  codec=True and graphs= as NTSCCombBatch's: each window
-    function (`_pal_window_simple`, `_pal_window_3d`) is one CUDA graph
-    per window length, frame 0's 2D head and the 2D flush frame the simple
-    one's key at one frame."""
+    words.  graphs= as NTSCCombBatch's: each window function
+    (`_pal_window_simple`, `_pal_window_3d`) is one CUDA graph per window
+    length, frame 0's 2D head and the 2D flush frame the simple one's key
+    at one frame."""
 
     def __init__(self, cfg: CombPALConfig = CombPALConfig(),
                  out8: bool = False, device=DEFAULT_DEVICE,
-                 codec: bool = False,
                  graphs: Union[bool, GraphCache] = True):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.graphs = as_cache(graphs, self.device)
         self._pend: Optional[torch.Tensor] = None   # (k, Y, X), k <= 2
         self._first = True
-        self._init_copies(out8, codec)
+        self._init_copies(out8)
 
     def feed(self, frames):
         """frames: (N, PAL_Y*PAL_X) or (N, PAL_Y, PAL_X) 16-bit samples, a

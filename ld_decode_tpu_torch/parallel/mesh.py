@@ -215,7 +215,6 @@ def build_pipeline_batch_sharded(cfg: DecoderConfig, bank: DemodBank,
                                  batch: int, field_pitch: int,
                                  colorlevel: float = 1.45,
                                  colorphase: float = 91.5,
-                                 codec: bool = False,
                                  graphs: Union[bool, GraphCache, None] = None):
     """Multi-rank `fused.field_pipeline_batch`: the whole speculative
     field batch -- demod, vsync/line voting, hsync/burst (or pilot)
@@ -235,10 +234,7 @@ def build_pipeline_batch_sharded(cfg: DecoderConfig, bank: DemodBank,
     batch's start.  Each rank decodes its fields, all-gathers the int32
     line counts, next-field offsets and window starts, replays the whole
     float32 offset chain in the single-device op order, and keeps its
-    slice.  codec=True adds the picture codec's payloads of the rank's
-    own fields ('pic_tab', 'dense', 'dense_q', 'rows2'): each rank
-    compacts its fields, as each of JAX's shards does, so the ranks' used
-    prefixes in rank order are the whole batch's.
+    slice.
 
     graphs (None: by the mesh, as the module says): on an NCCL mesh the
     whole call is one CUDA graph a rank, keyed as the single-rank batch
@@ -259,14 +255,13 @@ def build_pipeline_batch_sharded(cfg: DecoderConfig, bank: DemodBank,
 
     cache = as_cache(graphs, mesh.device, mesh.staged)
     key = ('field_pipeline_batch_sharded', id(bank), cfg, nblocks, n_audio1,
-           lb, field_pitch, colorlevel, colorphase, codec, mesh.rank)
+           lb, field_pitch, colorlevel, colorphase, mesh.rank)
 
     def call(capture, start0, audio_offset0, mtf_level, valid_len):
         return FU.field_pipeline_batch(
             capture, start0, audio_offset0, mtf_level, bank, cfg, nblocks,
             n_audio1, lb, field_pitch, colorlevel, colorphase, valid_len,
-            batch_index=mesh.rank * lb, gather_carry=gather_carry,
-            codec=codec)
+            batch_index=mesh.rank * lb, gather_carry=gather_carry)
 
     def shard_fn(capture: torch.Tensor, start0, audio_offset0, mtf_level,
                  valid_len=None):

@@ -147,6 +147,12 @@ class Framer:
         comes before `fetch_picture` and `pic_mode`, which JAX's Framer
         ends with: pass them by keyword.
 
+        pic_mode takes 'auto' or 'raw', which mean the same: a fetched
+        picture comes to the host by the pinned raw copy
+        (tbc/pipeline.py).  It stays only because the benchmark's traffic
+        file passes 'auto' (ROADMAP.md Queue 7: the debt that removes it);
+        any other value raises ValueError.
+
         full_decode=False locates fields without decoding their content,
         as the JAX package does: at batch=1 a field skips the burst or
         pilot passes (its line locations stay at the hsync stage) and has
@@ -160,10 +166,7 @@ class Framer:
         the batch call's graphs survive the swaps; the audio carry
         advances per field.  fetch_picture=False is the chain mode: the
         fields' pictures stay on the device and readframe returns the woven
-        frame as a device tensor (int32) for the comb.  pic_mode ('auto',
-        'codec' or 'raw') is how a fetched picture crosses to the host
-        (tbc/pipeline.py): 'auto' measures the device-to-host rate once
-        and takes the raw copy on the card and on the CPU.  graphs=True
+        frame as a device tensor (int32) for the comb.  graphs=True
         (the default; the JAX package always jits) replays each batch call
         as a CUDA graph on the card (utils/graphs.py; eager on the CPU);
         graphs=False runs it eagerly, for comparisons; a GraphCache is
@@ -179,6 +182,10 @@ class Framer:
         the audio carry advances per frame, and the pictures come to the
         host (fetch_picture is not read)."""
         FU.require_tbc(cfg)
+        if pic_mode not in ('auto', 'raw'):
+            raise ValueError(f'pic_mode {pic_mode!r}: the picture codec was '
+                             "removed; 'auto' and 'raw' both take the raw "
+                             'copy')
         if (loader is None) == (capture is None):
             raise ValueError('give exactly one of loader= and capture=')
         self.cfg = cfg
@@ -208,7 +215,6 @@ class Framer:
             self.prefetcher = FieldPrefetcher(self.decoder, self.capture_dev,
                                               batch,
                                               fetch_picture=fetch_picture,
-                                              pic_mode=pic_mode,
                                               graphs=self.graphs)
         if self.prefetcher is not None and self.capture_dev is None:
             if segment_samples <= 0:

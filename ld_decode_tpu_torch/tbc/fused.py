@@ -8,10 +8,8 @@ passes (NTSC) or one pilot pass (PAL, tbc/pal.py), the picture resample,
 u16 scaling, audio stage 2 with the 48 kHz chase, and the on-device
 Philips slice.  The start and audio carries come
 in and go out as device scalars, so consecutive batches chain on the
-device.  Results come back as a dict of tensors: the raw picture, and with
-codec=True also the lossless transport codec's payloads (tbc/codec.py,
-re-exported here under the JAX names; the JAX package's bundle packing is
-not part of the port).
+device.  Results come back as a dict of tensors, the raw picture among
+them.
 
 The per-line recurrences (bad-line propagation, the head/tail gap
 sanitizers and the burst neighbour repair) are Python loops over lines,
@@ -41,14 +39,6 @@ from ld_decode_tpu_torch.tbc import burst as B
 from ld_decode_tpu_torch.tbc import sync as S
 from ld_decode_tpu_torch.tbc import sync_dev as SD
 from ld_decode_tpu_torch.tbc.sync_dev import _take
-from ld_decode_tpu_torch.tbc.codec import (  # noqa: F401
-    CODEC_BW, CODEC_NPLANES, CODEC_QCAP_BITS, _CODEC_UNIT, _RICE_M,
-    _bit_transpose16, _block_rank, _block_rank_np, _codec_residual,
-    _popcount16, bcls_words, codec_cap_rows, codec_cap_words,
-    codec_qcap_words, compact_planes, compact_qstreams,
-    decode_image_planes, decode_picture_planes, encode_image_planes,
-    encode_picture_payload, encode_picture_planes, pack_tab,
-    pic_codec_params, shipped_plane_words_np, tab_words, unpack_tab)
 from ld_decode_tpu_torch.tbc.cuda_resample import resample_lines_batch
 from ld_decode_tpu_torch.utils.graphs import GraphCache, api_cache, owned
 from ld_decode_tpu_torch.vbi.philips import slice_philips_dev
@@ -654,10 +644,9 @@ def pipeline_analyze(capture, starts, mtf_level, bank: DemodBank,
 
 def pipeline_finish(video, audio1, lld, lc, valid, istop, nfo, nv, vs_count,
                     starts, offs_used, bank: DemodBank, cfg: DecoderConfig,
-                    n_audio1: int, colorlevel: float, colorphase: float,
-                    codec: bool = False) -> Dict[str, torch.Tensor]:
-    """Refinement + outputs + per-field meta words for a batch; codec=True
-    adds the picture codec's payloads (`encode_picture_payload`)."""
+                    n_audio1: int, colorlevel: float, colorphase: float
+                    ) -> Dict[str, torch.Tensor]:
+    """Refinement + outputs + per-field meta words for a batch."""
     lli, llf, burstlevel = _refine_batch(video, lld.lli, lld.llf, lld.bad,
                                          lc, cfg, colorphase)
     scaled = _picture_scaled(video, lli, llf, cfg)
@@ -680,8 +669,6 @@ def pipeline_finish(video, audio1, lld, lc, valid, istop, nfo, nv, vs_count,
          nfo.to(torch.int32), nv, vs_count, starts.to(torch.int32),
          white.to(torch.int32)], dim=1)
     out['meta_f'] = offs_used
-    if codec:
-        out.update(encode_picture_payload(out['picture'], cfg))
     return out
 
 
@@ -690,8 +677,7 @@ def field_pipeline_batch(capture: torch.Tensor, start0, audio_offset0,
                          nblocks: int, n_audio1: int, batch: int,
                          field_pitch: int, colorlevel: float = 1.45,
                          colorphase: float = 91.5, valid_len=None,
-                         batch_index: int = 0, gather_carry=None,
-                         codec: bool = False):
+                         batch_index: int = 0, gather_carry=None):
     """The whole speculative field batch in one call with no host read.
 
     capture: 1-D float32 resident capture (16-bit samples).  start0 /
@@ -706,16 +692,7 @@ def field_pipeline_batch(capture: torch.Tensor, start0, audio_offset0,
     which maps its (3, batch) int32 carries (line counts, next-field
     offsets, window starts) to the whole batch's (3, total); the audio
     offset chain is then replayed over the whole batch, so the chained
-    scalars are the whole batch's.
-
-    codec=True adds the lossless picture codec's payloads to the outputs:
-    'pic_tab' (batch, words) packed block tables, 'dense' and 'dense_q'
-    (the batch's compacted plane words and quotient streams, int16 holding
-    16-bit words, capacity-sized: the host copies their used prefixes) and
-    'rows2' (2, batch) int32 words a field; the raw picture stays in the
-    outputs (on the device) as the decode's fallback.  The default is
-    False here (JAX: True), so that every caller keeps its outputs;
-    FieldPrefetcher passes the flag its pic_mode resolves to."""
+    scalars are the whole batch's."""
     require_tbc(cfg)
     if valid_len is None:
         valid_len = capture.shape[0]
@@ -735,5 +712,5 @@ def field_pipeline_batch(capture: torch.Tensor, start0, audio_offset0,
     next_start0 = starts_all[-1] + nfo_all[-1]
     out = pipeline_finish(video, audio1, lld, lc, valid, istop, nfo, nv,
                           vs_count, starts, offs_used, bank, cfg, n_audio1,
-                          colorlevel, colorphase, codec)
+                          colorlevel, colorphase)
     return out, next_start0, next_offset0

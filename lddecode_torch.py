@@ -46,11 +46,6 @@ def parse_args(argv=None):
                    help='device-resident capture window, MB of 16-bit '
                         'samples (decoding runs inside a sliding segment '
                         'of the file)')
-    p.add_argument('--pic-mode', choices=['auto', 'codec', 'raw'],
-                   default='auto',
-                   help='picture transfer mode for the batched pipeline: '
-                        'lossless codec (slow links), chunked raw (fast '
-                        'PCIe-class links), or auto (probe once and pick)')
     p.add_argument('--f64', action='store_true',
                    help='run the filter bank at float64')
     p.add_argument('--despackle', action='store_true',
@@ -151,8 +146,7 @@ def decode(args):
                            segment_samples=args.segment_mb * (1 << 20) // 2,
                            despackle=args.despackle, rot_level=args.rot,
                            flip_fields=args.flip, bff=args.bff,
-                           device=device, pic_mode=args.pic_mode,
-                           graphs=args.graphs)
+                           device=device, graphs=args.graphs)
 
         if args.seek >= 0:
             nextsample = FR.findframe(fd, framer, args.seek,

@@ -70,8 +70,7 @@ def test_decode_stage_matches_bench(monkeypatch, ntsc_capture):
     jstats, tstats = js.fr.prefetcher.stats, ts.fr.prefetcher.stats
     common = [k for k, v in jstats.items()
               if isinstance(v, (int, str)) and k in tstats]
-    assert {'refills', 'hits', 'batches', 'seq_fallback',
-            'pic_mode'} <= set(common)
+    assert {'refills', 'hits', 'batches', 'seq_fallback'} <= set(common)
     assert {k: tstats[k] for k in common} == {k: jstats[k] for k in common}
     assert len(ts.rates) == len(js.rates) == 1 and ts.rates[0] > 0
     rep = ts.report()
@@ -233,7 +232,7 @@ def _traced_stub(tag, key, fail=False):
     """A stage whose visit times passes over a framer that reads frames
     without decoding (one field batch dispatched a frame)."""
     st = _Stub(tag, key, fail)
-    stats = {'batches': 0, 'pic_mode': 'raw'}
+    stats = {'batches': 0}
 
     def readframe(*a):
         stats['batches'] += 1
@@ -311,7 +310,7 @@ class _Stub(TB._Stage):
             raise RuntimeError(f'{self.tag} failed')
         self.fr = types.SimpleNamespace(
             graphs=GraphCache('cpu'),
-            prefetcher=types.SimpleNamespace(stats={'pic_mode': 'raw'}))
+            prefetcher=types.SimpleNamespace(stats={}))
         self.warmup_s = 0.5
         self.rates.extend([50.0 + len(self.rates)] * npasses)
 

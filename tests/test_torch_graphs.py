@@ -111,7 +111,7 @@ def _fake_pipeline(calls):
     """A stand-in for fused.field_pipeline_batch that records its static
     arguments and returns outputs made from its dynamic inputs."""
     def fake(capture, s0, o0, mtf, bank, cfg, nblocks, n_audio1, batch,
-             pitch, colorlevel, colorphase, valid_len, codec):
+             pitch, colorlevel, colorphase, valid_len):
         calls.append((capture.data_ptr(), batch, int(valid_len), colorlevel))
         out = {'meta_i': torch.zeros((batch, 8), dtype=torch.int32)
                + s0.to(torch.int32),
@@ -129,8 +129,7 @@ def test_prefetcher_key_rules(monkeypatch):
     bank = TF.make_demod_bank(NTSC, np.complex64, device='cpu')
     dec = TFD.FieldDecoder(NTSC, bank, 52, device='cpu')
     cap = torch.zeros(1 << 20)
-    pf = TP.FieldPrefetcher(dec, cap, batch=2, pic_mode='raw',
-                            graphs=emulated())
+    pf = TP.FieldPrefetcher(dec, cap, batch=2, graphs=emulated())
 
     def dispatch(s0, o0, mtf):
         pf._dispatch(torch.tensor(s0, dtype=torch.int32),
@@ -177,7 +176,7 @@ def test_caller_freed_without_a_cycle_collection(monkeypatch):
     bank = TF.make_demod_bank(NTSC, np.complex64, device='cpu')
     dec = TFD.FieldDecoder(NTSC, bank, 52, device='cpu')
     pf = TP.FieldPrefetcher(dec, torch.zeros(1 << 20), batch=2,
-                            pic_mode='raw', graphs=emulated())
+                            graphs=emulated())
     for s0 in (10, 20, 30):
         pf._dispatch(torch.tensor(s0, dtype=torch.int32), torch.zeros(()),
                      1.0)
@@ -206,8 +205,7 @@ def capture():
 def _decode(capture, graphs, mode):
     bank = TF.make_demod_bank(NTSC, np.complex64, device='cpu')
     fr = TFR.Framer(NTSC, bank, capture=capture, batch=6, device='cpu',
-                    fetch_picture=mode != 'chain',
-                    pic_mode='codec' if mode == 'codec' else 'raw',
+                    fetch_picture=mode != 'chain', pic_mode='raw',
                     graphs=graphs)
     out, s = [], 33046
     for i in range(3):
@@ -219,14 +217,12 @@ def _decode(capture, graphs, mode):
     return fr, out
 
 
-@pytest.mark.parametrize('mode', ['raw', 'chain', 'codec'])
+@pytest.mark.parametrize('mode', ['raw', 'chain'])
 def test_framer_protocol_equals_eager(capture, mode):
     """The Framer's decode (test_torch_framer.py's capture and batch)
     through the emulated protocol equals the eager decode bit for bit:
     frames, audio, next samples, line locations and metadata, with the
-    picture copied raw, kept on the device (chain mode) or sent through
-    the codec (`--pic-mode codec`, whose dense buffers are read again at
-    fetch time for top-ups).  In chain mode the fields' device pictures,
+    picture copied raw or kept on the device (chain mode).  In chain mode the fields' device pictures,
     read after every later batch has run, still hold their own fields:
     the prefetcher clones what outlives the next replay."""
     fe, eager = _decode(capture, False, mode)
@@ -251,10 +247,6 @@ def test_framer_protocol_equals_eager(capture, mode):
                 assert torch.equal(x.dev_picture[0][x.dev_picture[1]],
                                    y.dev_picture[0][y.dev_picture[1]])
     assert held >= (2 if mode == 'chain' else 0)
-    if mode == 'codec':
-        st = fg.prefetcher.stats
-        assert st['pic_mode'] == 'codec' and st['pic_topups'] > 0
-        assert st['pic_raw_fallback'] == 0
 
 
 def test_segmented_protocol_equals_eager(tmp_path):
@@ -290,9 +282,8 @@ def test_segmented_protocol_equals_eager(tmp_path):
         assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
 
 
-@pytest.mark.parametrize('system,codec', [('NTSC', False), ('NTSC', True),
-                                          ('PAL', False)])
-def test_no_host_copies_after_warmup(capture, monkeypatch, system, codec):
+@pytest.mark.parametrize('system', ['NTSC', 'PAL'])
+def test_no_host_copies_after_warmup(capture, monkeypatch, system):
     """A host-to-device copy from pageable memory is illegal in a capture:
     after its first call, field_pipeline_batch creates no tensor from host
     data."""
@@ -310,13 +301,12 @@ def test_no_host_copies_after_warmup(capture, monkeypatch, system, codec):
     def call():
         return FU.field_pipeline_batch(
             cap_t, start0, offset0, mtf, bank, cfg, nblocks,
-            nblocks * bank.a_stage1_keep, 2, pitch, codec=codec)
+            nblocks * bank.a_stage1_keep, 2, pitch)
 
     call()
     made = _count_host_tensors(monkeypatch)
-    out, _, _ = call()
+    call()
     assert made == {'from_numpy': 0, 'as_tensor': 0, 'tensor': 0}
-    assert ('dense' in out) == codec
 
 
 def _count_host_tensors(monkeypatch):

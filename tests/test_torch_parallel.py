@@ -19,10 +19,6 @@ Budgets:
     port's field-pipeline budgets (tests/torch_parity.py, as
     tests/test_torch_fused.py and tests/test_torch_pal.py hold the
     single-device batch);
-  * the sharded pipeline with codec=True: each rank's payload decodes
-    losslessly to its own fields' pictures, and the ranks' used prefixes
-    of the dense buffers, their tables and counts, in rank order, equal
-    the single-rank batch's;
   * sharded 3D comb (16 frames of 525 x 910 with strongly varying burst
     levels, tests/test_parallel.py:62): equal to the port's sequential
     comb_frame chain, within 1 LSB of JAX's sharded comb;
@@ -236,10 +232,8 @@ def _port_refs(arrays, spec):
         out, ns, no = TFU.field_pipeline_batch(
             torch.from_numpy(arrays[f'cap_{system}'].astype(np.float32)),
             p['start'], p['offset0'], 1.0, bank, cfg, p['nblocks'],
-            n_audio1, p['batch'], p['pitch'], codec=True)
-        out = {k: v.numpy() for k, v in out.items()}
-        refs[f'codec_{system}'] = {k: out.pop(k) for k in W.CODEC_KEYS}
-        refs[system] = out
+            n_audio1, p['batch'], p['pitch'])
+        refs[system] = {k: v.numpy() for k, v in out.items()}
         refs[system]['next'] = (int(ns), float(no))
 
     frames = torch.from_numpy(arrays['comb_frames'].astype(np.int32))
@@ -392,52 +386,6 @@ def test_sharded_pipeline_against_jax(runs, world, system):
         assert_picture_close(got['picture'], ref['pic'])
 
 
-def _payload_pictures(pay, cfg, nfields):
-    """Each field's picture decoded from its region of a payload."""
-    from ld_decode_tpu_torch.tbc import codec as TC
-    L, W, Wp, _, k = TC.pic_codec_params(cfg)
-    rows2 = pay['rows2'].astype(np.int64)
-    offs = np.concatenate([[0], np.cumsum(rows2[0])])
-    offs_q = np.concatenate([[0], np.cumsum(rows2[1])])
-    dense = pay['dense'].view(np.uint16)
-    dq = pay['dense_q'].view(np.uint16)
-    pics = []
-    for b in range(nfields):
-        img, route = TC.decode_payload(
-            pay['pic_tab'][b].view(np.uint16), dense[offs[b]:offs[b + 1]],
-            dq[offs_q[b]:offs_q[b + 1]], (L, Wp), k, False,
-            int(rows2[0, b]))
-        assert img is not None and route == 'native'
-        pics.append(img[:, :W])
-    return np.stack(pics)
-
-
-@pytest.mark.parametrize('system', list(PIPELINE))
-@pytest.mark.parametrize('world', WORLDS)
-def test_sharded_codec_payloads(runs, world, system):
-    cfg = TConfig(system=system, freq_mhz=40.0)
-    ranks = runs['worlds'][world]['ranks']
-    want = runs['port'][f'codec_{system}']
-    lb = PIPELINE[system]['batch'] // world
-    for r, rank in enumerate(ranks):
-        pay = {k: rank[f'codec_{system}_{k}'] for k in W.CODEC_KEYS}
-        np.testing.assert_array_equal(
-            _payload_pictures(pay, cfg, lb),
-            rank[f'{system}_picture'].astype(np.uint16))
-    rows2 = np.concatenate([rank[f'codec_{system}_rows2'] for rank in ranks],
-                           axis=1)
-    np.testing.assert_array_equal(rows2, want['rows2'])
-    np.testing.assert_array_equal(
-        np.concatenate([rank[f'codec_{system}_pic_tab'] for rank in ranks]),
-        want['pic_tab'])
-    for key, row in (('dense', 0), ('dense_q', 1)):
-        used = np.concatenate([
-            rank[f'codec_{system}_{key}'][:rank[f'codec_{system}_rows2'][
-                row].sum()] for rank in ranks])
-        np.testing.assert_array_equal(used,
-                                      want[key][:want['rows2'][row].sum()])
-
-
 @pytest.mark.parametrize('world', WORLDS)
 def test_sharded_comb3d(runs, world):
     got = runs['worlds'][world]['comb']
@@ -466,7 +414,7 @@ def test_nn_comb_train_dp_mesh(runs, world):
 @pytest.mark.parametrize('name', ['demod', 'NTSC', 'PAL', 'comb', 'nn'])
 def test_sharded_graphs_equal_eager(runs, name):
     """The 2-rank gloo world's sharded functions, emulated: the
-    sharded demod, the NTSC and PAL batch calls (codec=True), the 3D comb
+    sharded demod, the NTSC and PAL batch calls, the 3D comb
     and the data-parallel trainer; each key warmed up and captured once
     on other inputs, and the replay on the eager call's inputs equal to
     it bit for bit on every rank."""
@@ -487,7 +435,7 @@ def test_sharded_graphs_equal_eager(runs, name):
             keys = {'demod': ['demod', 'pidx', 'pval'],
                     'comb': ['comb_rgb']}.get(name) or [
                 k[2:] for k in rank
-                if k.startswith((f'g_{name}_', f'g_codec_{name}_'))
+                if k.startswith(f'g_{name}_')
                 and not k.endswith(('_counts', '_varied'))]
         assert len(keys) >= 3 or name == 'comb', keys
         for k in keys:

@@ -31,7 +31,6 @@ from ld_decode_tpu_torch.utils.graphs import GraphCache  # noqa: E402
 from ld_decode_tpu_torch.utils.params import DecoderConfig  # noqa: E402
 
 TIMEOUT_S = 120          # a collective that waits longer fails the rank
-CODEC_KEYS = ('pic_tab', 'dense', 'dense_q', 'rows2')
 GRAPH_WORLD = 2          # the world that also runs them graphed
 
 # the NN trainer's test run (the JAX package's tests/test_parallel.py)
@@ -138,15 +137,11 @@ def main(rank: int, world: int, port: int, workdir: str):
             if pbank.has_audio else 0
         fn = M.build_pipeline_batch_sharded(
             pcfg, pbank, mesh, p['nblocks'], n_audio1, p['batch'],
-            p['pitch'], codec=True)
+            p['pitch'])
         cap = torch.from_numpy(inp[f'cap_{system}'].astype(np.float32))
         out, ns, no = fn(cap, p['start'], p['offset0'], 1.0)
         for k, v in out.items():
-            # the codec payloads are the rank's own buffers: kept apart
-            # from the per-field rows the test concatenates
-            name = f'codec_{system}_{k}' if k in CODEC_KEYS \
-                else f'{system}_{k}'
-            res[name] = v.numpy()
+            res[f'{system}_{k}'] = v.numpy()
         res[f'{system}_next'] = np.array([int(ns), float(no)])
         if graphed:
             # start0, audio_offset0, mtf_level and valid_len change from
@@ -160,10 +155,9 @@ def main(rank: int, world: int, port: int, workdir: str):
             out, ns, no = _graphed(
                 lambda c: M.build_pipeline_batch_sharded(
                     pcfg, pbank, mesh, p['nblocks'], n_audio1, p['batch'],
-                    p['pitch'], codec=True, graphs=c),
+                    p['pitch'], graphs=c),
                 lambda k: (cap,) + calls[k], res, system)
-            res.update({f'g_codec_{system}_{k}' if k in CODEC_KEYS
-                        else f'g_{system}_{k}': v.numpy().copy()
+            res.update({f'g_{system}_{k}': v.numpy().copy()
                         for k, v in out.items()})
             res[f'g_{system}_next'] = np.array([int(ns), float(no)])
 
