@@ -7,7 +7,8 @@ utils/cuda_build.py and bound with ctypes) replaces no TPU kernel: the JAX
 package keeps the capture as uint16 on the device and widens inside its
 jitted graphs, while the port's float32 buffer, read in place by its CUDA
 graphs, was filled from the host.  On the card a segment swap copies the
-loader's samples as they are, 1 or 2 bytes a sample (`stage`), into the
+loader's samples as they are, 1 or 2 bytes a sample (`stage`; from the
+Framer's pinned staging buffer, asynchronously), into the
 top of the first 4n bytes of the float32 buffer, and the kernel widens
 them in place (`widen`), in ranges launched in stream order
 (`widen_schedule`): no scratch memory, so a swap allocates nothing on the
@@ -118,21 +119,30 @@ def _check_out(out: torch.Tensor, n: int):
                          f'{out.dtype} {tuple(out.shape)} on {out.device}')
 
 
-def stage(samples: np.ndarray, out: torch.Tensor) -> None:
+def stage(samples, out: torch.Tensor) -> None:
     """Copy the n samples as they are into out's bytes [(4-s)n, 4n), where
     `widen` reads them: a copy on the current stream, so it follows any
-    queued work still reading the old contents, and the host returns when
-    it is done (pageable memory)."""
+    queued work still reading the old contents.  From a numpy array
+    (pageable memory) the host returns when the copy is done.  From a host
+    tensor in pinned memory (the segmented Framer's staging buffer) the
+    copy is asynchronous: the host returns at once, and the caller leaves
+    the samples as they are until an event recorded after this call has
+    passed."""
     arr = np.asarray(samples)
     sample_kind(arr)
     n, s = arr.shape[0], arr.dtype.itemsize
     _check_out(out, n)
+    dst = out.view(torch.uint8)[(4 - s) * n:4 * n]
+    if isinstance(samples, torch.Tensor):
+        src = samples.contiguous().view(torch.uint8)
+        dst.copy_(src, non_blocking=src.is_pinned())
+        return
     with warnings.catch_warnings():
         # the loaders' arrays may be read-only views of the file's bytes;
         # the copy only reads them
         warnings.simplefilter('ignore', UserWarning)
         src = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint8))
-    out.view(torch.uint8)[(4 - s) * n:4 * n].copy_(src)
+    dst.copy_(src)
 
 
 def widen(out: torch.Tensor, n: int, kind: int) -> torch.Tensor:

@@ -11,7 +11,8 @@ or `FieldDecoder.process_resident` on a device-resident capture.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Union
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,11 +29,13 @@ from ld_decode_tpu_torch.tbc import fused as FU
 from ld_decode_tpu_torch.tbc.field import FieldDecoder
 from ld_decode_tpu_torch.tbc.pipeline import FieldPrefetcher
 
-def to_device_capture(samples: np.ndarray, device,
+def to_device_capture(samples, device,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Raw capture samples -> the float32 device capture.  .r16 and .r30
-    captures are signed and zero-centred: they are recentred to unsigned
-    16-bit like every other format (tbc/cuda_widen.py::widen_plain).
+    """Raw capture samples (a numpy array, or a 1-D host tensor: the
+    segmented Framer's staging buffer) -> the float32 device capture.
+    .r16 and .r30 captures are signed and zero-centred: they are recentred
+    to unsigned 16-bit like every other format
+    (tbc/cuda_widen.py::widen_plain).
 
     out: the segmented Framer's resident buffer, allocated once for the
     whole file.  The samples are copied into its head in place (a copy on
@@ -45,11 +48,15 @@ def to_device_capture(samples: np.ndarray, device,
     On the card the samples are copied as they are and widened to float32
     there, in place (tbc/cuda_widen.py): they must be 1- or 2-byte
     integers (every loader's, and the encoder's uint16), or a ValueError
-    is raised.  A CPU output takes the host route: the float32 conversion
-    on the host, then the copy.  Both give the same bits.
+    is raised.  From a host tensor in pinned memory the copy is
+    asynchronous (cuda_widen.stage): the caller leaves the samples as they
+    are until an event recorded after this call has passed.  A CPU output
+    takes the host route: the float32 conversion on the host, then the
+    copy.  Both give the same bits.
 
     Spans: `segment.copy` (the copy to the device, and on the host route
-    the tail's zeroing, until the host returns from them) and
+    the tail's zeroing, until the host returns from them: at once for an
+    asynchronous copy) and
     `segment.convert` (on the host route the recentre and the float32
     conversion, before the copy; on the card the host's launches of the
     widening kernel and the tail's zeroing, after it: the kernel's device
@@ -61,7 +68,7 @@ def to_device_capture(samples: np.ndarray, device,
         if out is None:
             out = torch.empty(n, dtype=torch.float32, device=dev)
         with span('segment.copy'):
-            CW.stage(arr, out)
+            CW.stage(samples, out)
         with span('segment.convert'):
             return CW.widen(out, n, kind)
     with span('segment.convert'):
@@ -164,9 +171,13 @@ class Framer:
         `segment_samples` kept in one device buffer for the whole file
         (the tail zero-padded to its size, as the JAX package pads it), so
         the batch call's graphs survive the swaps; the audio carry
-        advances per field.  fetch_picture=False is the chain mode: the
-        fields' pictures stay on the device and readframe returns the woven
-        frame as a device tensor (int32) for the comb.  graphs=True
+        advances per field.  Where the loader's file has a known length
+        (io/loaders.py::file_samples), each swap starts reading the next
+        segment ahead on a worker thread (`_ensure_segment`): call
+        `close()` before closing the file, or before reading it other
+        than through the Framer.  fetch_picture=False is the chain mode:
+        the fields' pictures stay on the device and readframe returns the
+        woven frame as a device tensor (int32) for the comb.  graphs=True
         (the default; the JAX package always jits) replays each batch call
         as a CUDA graph on the card (utils/graphs.py; eager on the CPU);
         graphs=False runs it eagerly, for comparisons; a GraphCache is
@@ -206,6 +217,10 @@ class Framer:
                                     graphs=self.graphs if batch <= 1
                                     else False)
 
+        # the read of the next segment ahead: (its first sample, the samples
+        # asked for, the worker's future) while one is in flight or staged
+        self._ahead: Optional[Tuple[int, int, Future]] = None
+        self._pool: Optional[ThreadPoolExecutor] = None
         self.capture_dev = None
         if capture is not None:
             self.capture_dev = to_device_capture(capture, self.device)
@@ -231,6 +246,10 @@ class Framer:
             self._seg_eof = False
             self._seg_valid = 0
             self._seg_buf = None                 # the resident buffer
+            # the host staging buffer every load passes through (pinned
+            # on the card), and the event after the last copy out of it
+            self._stage: Optional[torch.Tensor] = None
+            self._stage_free = None
 
         self.outwidth = cfg.sys.outlinelen
         self.outlines = cfg.sys.frame_lines
@@ -257,7 +276,19 @@ class Framer:
     def _ensure_segment(self, infile, sample: int) -> bool:
         """Segmented mode: make [sample, sample+horizon) device-resident.
         Returns False at end of file (nothing loadable at `sample`).  A
-        load is the `segment.swap` span."""
+        load is the `segment.swap` span.
+
+        A swap puts the samples [base, base + n) in the resident buffer,
+        base a little before `sample`, through the host staging buffer.
+        Where the read ahead that the last swap started staged them (a
+        hit: the `segment.take` span), that is one copy to the card,
+        asynchronous from pinned memory; else (a miss: the first load, a
+        seek or resync jump, a loader of no known length) the loader reads
+        them on this thread first, as it always did.  Either way the
+        buffer gets the same base and the same samples.  The swap waits
+        for the read in flight before it touches the file (the
+        `segment.wait` span), then starts reading the next segment ahead
+        (`_start_read_ahead`)."""
         if self._seg_samples == 0:
             return True
         n_stream = D.stream_len(self.cfg, self.nblocks)
@@ -271,29 +302,131 @@ class Framer:
             return True
         from ld_decode_tpu_torch.io.loaders import file_samples, load_available
         with span('segment.swap'):
+            ahead, self._ahead = self._ahead, None
+            if ahead is not None:
+                with span('segment.wait'):
+                    ahead[2].exception()      # its error: in _staged
             base = max(int(sample) - self.cfg.blockcut
                        - 8 * self.cfg.linelen, 0)
             avail = file_samples(self.loader, infile)
             if avail is not None:
                 n = min(self._seg_samples, avail - base)
-                data = self.loader(infile, base, n) if n >= n_stream \
-                    else None
+                if n < n_stream:
+                    return False
+                at = self._staged(ahead, base, n)
+                if at is not None:
+                    with span('segment.take'):
+                        self._put(self._stage[at:at + n], base)
+                    self._start_read_ahead(infile, avail)
+                    return True
+                data = self.loader(infile, base, n)
             else:
                 data = load_available(self.loader, infile, base,
                                       self._seg_samples, n_stream)
             if data is None or len(data) < n_stream:
                 return False
-            self._seg_eof = len(data) < self._seg_samples
-            self._seg_valid = len(data)
-            self._seg_base = base
-            if self._seg_buf is None:
-                self._seg_buf = torch.empty(self._seg_samples,
-                                            dtype=torch.float32,
-                                            device=self.device)
-            self.prefetcher.set_capture(
-                to_device_capture(data, self.device, out=self._seg_buf),
-                base, valid_len=self._seg_valid)
+            self._put(self._fill(data), base)
+            self._start_read_ahead(infile, avail)
             return True
+
+    def _staged(self, ahead, base: int, n: int) -> Optional[int]:
+        """Where the samples [base, base + n) lie in the staging buffer if
+        the read ahead (its first sample, the samples asked for, its
+        future; done) staged them, or None (a miss).  A read that failed
+        raises here, in the swap that needed its samples."""
+        if ahead is None:
+            return None
+        start, asked, read = ahead
+        if not start <= base <= base + n <= start + asked:
+            return None
+        got = read.result()
+        return base - start if base + n <= start + got else None
+
+    def _fill(self, data: np.ndarray) -> torch.Tensor:
+        """Copy a loader's samples into the head of the staging buffer,
+        once the card has copied the last segment out of it, and return
+        them there.  The buffer takes seg_samples plus two field pitches
+        (a read ahead's most) of the samples' type, allocated at the first
+        load.  numpy's copy: one thread, and for uint16 a few times
+        quicker than torch's.  The `segment.fill` span."""
+        with span('segment.fill'):
+            data = np.asarray(data)
+            if self._stage is None:
+                self._stage = torch.empty(
+                    self._seg_samples + 2 * self.prefetcher.field_pitch,
+                    dtype=torch.from_numpy(np.empty(0, data.dtype)).dtype,
+                    pin_memory=self.device.type == 'cuda')
+            if self._stage_free is not None:
+                self._stage_free.synchronize()
+            out = self._stage[:data.shape[0]]
+            np.copyto(out.numpy(), data)
+            return out
+
+    def _put(self, samples: torch.Tensor, base: int):
+        """Make the staged `samples` the resident segment at `base`: the
+        copy to the device and its widening (`to_device_capture`), the
+        event the next fill of the staging buffer waits for, and the
+        prefetcher's new capture."""
+        n = samples.shape[0]
+        self._seg_eof = n < self._seg_samples
+        self._seg_valid = n
+        self._seg_base = base
+        if self._seg_buf is None:
+            self._seg_buf = torch.empty(self._seg_samples,
+                                        dtype=torch.float32,
+                                        device=self.device)
+        capture = to_device_capture(samples, self.device, out=self._seg_buf)
+        if self.device.type == 'cuda':
+            if self._stage_free is None:
+                self._stage_free = torch.cuda.Event()
+            self._stage_free.record(torch.cuda.current_stream(self.device))
+        self.prefetcher.set_capture(capture, base, valid_len=n)
+
+    def _start_read_ahead(self, infile, avail: Optional[int]):
+        """Start reading, on the worker thread, the samples the next swap
+        will ask for: it comes at the first request past the resident
+        segment's end less the horizon, requests move on by about a field,
+        so its base lies in [p, p + 2 field pitches) for p the base of a
+        request right at that point.  Nothing is read at the file's end or
+        where the file's length is not known."""
+        if avail is None or self._seg_eof:
+            return
+        cfg = self.cfg
+        start = max(self._seg_base + self._seg_valid - self._seg_horizon
+                    - cfg.blockcut - 8 * cfg.linelen, 0)
+        n = min(self._seg_samples + 2 * self.prefetcher.field_pitch,
+                avail - start)
+        if n < D.stream_len(cfg, self.nblocks):
+            return
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(
+                1, thread_name_prefix='segment-readahead')
+        self._ahead = (start, n, self._pool.submit(self._read_ahead, infile,
+                                                   start, n))
+
+    def _read_ahead(self, infile, start: int, n: int) -> int:
+        """The worker's read: the loader's samples [start, start + n)
+        staged; returns how many (0 where the loader gave none).  The
+        `segment.readahead` span, a root span of the worker's thread."""
+        with span('segment.readahead'):
+            data = self.loader(infile, start, n)
+            return 0 if data is None else self._fill(data).shape[0]
+
+    def wait_reads(self):
+        """Return once no read ahead is under way: the decode's thread may
+        then use the file.  What it staged stays for the next swap."""
+        if self._ahead is not None:
+            self._ahead[2].exception()
+
+    def close(self):
+        """Wait for the read ahead in flight, if any, drop what it staged
+        and stop the worker thread; a later swap starts them again.  Call
+        it before closing the file."""
+        self.wait_reads()
+        self._ahead = None
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
 
     def readfield(self, infile, sample: int):
         """Decode the field at `sample`, skipping invalid windows."""
@@ -477,6 +610,7 @@ class Framer:
 def findframe(infile, framer: Framer, target: int,
               nextsample: int = 0) -> Optional[int]:
     """Frame-accurate seek by decode-probe + jump."""
+    framer.wait_reads()
     cfg = framer.cfg
     samples_per_frame = int(cfg.freq_hz / cfg.sys.fps)
     framer.vbi = {'framenr': None, 'isclv': False, 'minutes': None}

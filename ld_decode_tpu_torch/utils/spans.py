@@ -26,13 +26,18 @@ number of the recorded `frame` span it lies in, which all the spans of one
 decoded frame share (-1 outside every frame; a `frame` span inside another
 keeps its number).
 
-Like utils/log.py, dependency-free and global-state-minimal: spans nest on
-one stack, so only the decode's own thread opens them.
+Like utils/log.py, dependency-free and global-state-minimal.  Spans nest
+on a stack of their thread's own, so a span opened on another thread (the
+Framer's read-ahead, tbc/framer.py) lies under that thread's open spans
+and never under the decode's: a root span there has `parent` -1 and
+`frame` -1.  The totals and the ring are kept under one lock, so spans
+closing on two threads at once lose no count and no record.
 """
 
 from __future__ import annotations
 
 import sys
+import threading
 import time
 from typing import Dict, List, Tuple
 
@@ -45,7 +50,8 @@ _totals: Dict[str, List[int]] = {}   # name -> [count, total_ns, self_ns]
 _ring: list = [None] * RING          # a record, or None while it is open
 _opened = 0                          # records opened so far
 _frames = 0                          # frame numbers handed out
-_top = None                          # the innermost open span
+_local = threading.local()           # .top: the thread's innermost span
+_lock = threading.Lock()             # over _totals, _ring, _opened, _frames
 _autograd = None                     # torch.autograd.profiler once loaded
 
 
@@ -73,14 +79,14 @@ class span:
         return self._wall * 1e-9
 
     def __enter__(self) -> 'span':
-        global _top
-        up = self._up = _top
+        local = _local
+        up = self._up = getattr(local, 'top', None)
         self._child = 0
         self._rf = None
         prof = _autograd or _profiler()
         if prof is not None and prof._is_profiler_enabled:
             self._record(prof, up)
-        _top = self
+        local.top = self
         self._t0 = _now()
         return self
 
@@ -88,32 +94,33 @@ class span:
         """Open the span's record and its record_function."""
         global _frames, _opened
         frame = up._frame if up is not None and up._rf is not None else -1
-        if frame < 0 and self.name == 'frame':
-            frame = _frames
-            _frames += 1
+        with _lock:
+            if frame < 0 and self.name == 'frame':
+                frame = _frames
+                _frames += 1
+            self._rec = _opened
+            _ring[_opened % RING] = None
+            _opened += 1
         self._frame = frame
-        self._rec = _opened
-        _ring[_opened % RING] = None
-        _opened += 1
         self._rf = prof.record_function(self.name)
         self._rf.__enter__()
 
     def __exit__(self, et, ev, tb) -> bool:
-        global _top
         t1 = _now()
         wall = self._wall = t1 - self._t0
-        up = _top = self._up
+        up = _local.top = self._up
         if up is not None:
             up._child += wall
-        t = _totals.get(self.name)
-        if t is None:
-            t = _totals[self.name] = [0, 0, 0]
-        t[0] += 1
-        t[1] += wall
-        t[2] += wall - self._child
         if self._rf is not None:
             self._rf.__exit__(None, None, None)
-            if _opened - self._rec <= RING:
+        with _lock:
+            t = _totals.get(self.name)
+            if t is None:
+                t = _totals[self.name] = [0, 0, 0]
+            t[0] += 1
+            t[1] += wall
+            t[2] += wall - self._child
+            if self._rf is not None and _opened - self._rec <= RING:
                 _ring[self._rec % RING] = (
                     self.name, self._t0 + _OFFSET_NS, t1 + _OFFSET_NS,
                     up._rec if up is not None and up._rf is not None
@@ -124,16 +131,19 @@ class span:
 def totals() -> Dict[str, Tuple[int, float, float]]:
     """name -> (count, total seconds, self seconds) of every span closed
     since the start or the last `reset()`."""
-    return {k: (c, tot * 1e-9, own * 1e-9)
-            for k, (c, tot, own) in _totals.items()}
+    with _lock:
+        return {k: (c, tot * 1e-9, own * 1e-9)
+                for k, (c, tot, own) in _totals.items()}
 
 
 def records() -> List[Tuple[str, int, int, int, int]]:
     """The closed spans of the ring, in the order they opened, as (name,
     start_ns, end_ns, parent, frame); `parent` an index into this list."""
+    with _lock:
+        opened, ring = _opened, list(_ring)
     out, pos = [], {}
-    for n in range(max(0, _opened - RING), _opened):
-        r = _ring[n % RING]
+    for n in range(max(0, opened - RING), opened):
+        r = ring[n % RING]
         if r is None:
             continue
         name, a, b, parent, frame = r
@@ -143,10 +153,12 @@ def records() -> List[Tuple[str, int, int, int, int]]:
 
 
 def reset() -> None:
-    """Forget every total and record (tests)."""
-    global _opened, _frames, _top
-    _totals.clear()
-    _ring[:] = [None] * RING
-    _opened = 0
-    _frames = 0
-    _top = None
+    """Forget every total and record, and every thread's open spans
+    (tests)."""
+    global _opened, _frames, _local
+    with _lock:
+        _totals.clear()
+        _ring[:] = [None] * RING
+        _opened = 0
+        _frames = 0
+        _local = threading.local()

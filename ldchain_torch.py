@@ -213,6 +213,7 @@ def main(argv=None):
                                  ).astype('<i2').tobytes())
         windows.drain()
         if args.efm:
+            framer.close()                # the pass below reads the file
             from ld_decode_tpu_torch.audio import efm as EFM
             nspan = (args.length + 2 if args.length is not None
                      else max(sink.nframes + 8, 4)) * samples_per_frame
@@ -224,6 +225,7 @@ def main(argv=None):
                       f'samples, {len(dec["q"])} valid Q packets',
                       file=sys.stderr)
     finally:
+        framer.close()                    # no read ahead outlives the file
         fd.close()
         sink.close()
         if out_audio is not None:

@@ -12,6 +12,7 @@ batched pipeline over a sliding device-resident segment of the file.
 """
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -95,8 +96,9 @@ def main(argv=None):
 def log_spans():
     """Debug: each span's count, total and self seconds
     (utils/spans.py), slowest first, the capture widenings by route
-    (tbc/cuda_widen.py) and the .lds unpacks split across threads
-    (io/loaders.py)."""
+    (tbc/cuda_widen.py), the .lds unpacks split across threads
+    (io/loaders.py) and the segment swaps that took the samples read
+    ahead (their `segment.take` spans)."""
     from ld_decode_tpu_torch.io import loaders
     from ld_decode_tpu_torch.tbc import cuda_widen
     from ld_decode_tpu_torch.utils import log, spans
@@ -109,6 +111,10 @@ def log_spans():
               f'{cuda_widen.routes["host"]} on the host')
     log.debug(f'.lds unpack: {loaders.unpack_threads["split"]} split across '
               f'threads (the last on {loaders.unpack_threads["threads"]})')
+    tot = spans.totals()
+    swaps = tot.get('segment.swap', (0,))[0]
+    took = tot.get('segment.take', (0,))[0]
+    log.debug(f'segment read-ahead: {took} of {swaps} swaps took it')
 
 
 def decode(args):
@@ -141,12 +147,14 @@ def decode(args):
     num_frames = args.length if args.length is not None \
         else infile_size // bytes_per_frame - args.start
 
-    with open(args.infile, 'rb') as fd:
+    with open(args.infile, 'rb') as fd, contextlib.ExitStack() as done:
         framer = FR.Framer(cfg, bank, loader, batch=max(args.batch, 1),
                            segment_samples=args.segment_mb * (1 << 20) // 2,
                            despackle=args.despackle, rot_level=args.rot,
                            flip_fields=args.flip, bff=args.bff,
                            device=device, graphs=args.graphs)
+        # before the file closes: no read ahead of the Framer's under way
+        done.callback(framer.close)
 
         if args.seek >= 0:
             nextsample = FR.findframe(fd, framer, args.seek,
@@ -161,6 +169,7 @@ def decode(args):
         if args.cut:
             lastsample = FR.findframe(fd, framer, args.end, nextsample)
             lastsample += int(samples_per_frame * .25)
+            framer.close()                # the loop below reads the file
             with open(args.outfile + '.r16', 'wb') as outfile:
                 for i in range(int(nextsample), int(lastsample), 16384):
                     n = min(16384, int(lastsample) - i)
@@ -202,6 +211,7 @@ def decode(args):
             out_audio.close()
 
         if args.efm:
+            framer.close()                # the pass below reads the file
             # digital audio rides the composite below the video FM.  One
             # decode on the host over the frame span the video pass used:
             # the EFM frame stream and the CIRC interleave are continuous,

@@ -11,8 +11,11 @@ counted; a card output refuses samples the kernel does not take, with no
 host fallback.  On the card (marked `cuda`): the kernel is bit-equal to
 the host route, allocates nothing, counts its launches and raises on a
 launch it refuses, and a segmented decode gives the same frames, audio
-and line locations as one through the host route."""
+and line locations as one through the host route, and as one whose swaps
+all load on the decode's thread instead of taking the samples read ahead
+into pinned memory."""
 
+import gc
 import math
 
 import numpy as np
@@ -26,6 +29,7 @@ from ld_decode_tpu_torch.ops import filters as TF
 from ld_decode_tpu_torch.tbc import cuda_widen as CW
 from ld_decode_tpu_torch.tbc import framer as TFR
 from ld_decode_tpu_torch.utils import log
+from ld_decode_tpu_torch.utils import spans as S
 from ld_decode_tpu_torch.utils.params import DecoderConfig
 
 torch.set_num_threads(2)
@@ -343,6 +347,50 @@ def test_card_segmented_decode_equals_the_host_route(tmp_path, monkeypatch):
     host = CW.routes['host']
     want = _decode(path)
     assert CW.routes['host'] - host == swaps
+    for (fa, aa, la, na), (fb, ab, lb, nb) in zip(got, want):
+        assert na == nb
+        assert np.array_equal(fa, fb)
+        assert np.array_equal(aa, ab)
+        assert all(np.array_equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+def test_card_read_ahead_equals_loading_at_each_swap(tmp_path):
+    """A segmented decode on the card (8 frames over the smallest segment)
+    whose later swaps take the samples read ahead, copied asynchronously
+    from the pinned staging buffer, gives the same frames, audio and line
+    locations as the same decode with every swap loading on the decode's
+    thread.  Both Framers are collected before it returns: their device
+    buffers are not left to a later test's count."""
+    _card()
+    cfg = DecoderConfig(system='NTSC', freq_mhz=40.0)
+    samples = TE.encode_frames(cfg, 12, TE.EncodeSpec(pattern='ramp',
+                                                      cav_start_frame=900))
+    path = tmp_path / 'cap.lds'
+    path.write_bytes(TL.pack_data_4_40(samples).tobytes())
+    bank = TF.make_demod_bank(cfg, device='cuda')
+    runs = {}
+    for mode in ('ahead', 'load'):
+        S.reset()
+        fr = TFR.Framer(cfg, bank, TL.loader_for_path(str(path)), batch=2,
+                        segment_samples=1, device='cuda')
+        if mode == 'load':
+            fr._staged = lambda ahead, base, n: None
+        out, s = [], 33046
+        with open(path, 'rb') as fd:
+            for i in range(8):
+                combined, audio, nxt, fields = fr.readframe(fd, s, i == 0)
+                assert combined is not None
+                out.append((np.asarray(combined), np.asarray(audio),
+                            [np.asarray(f.linelocs) for f in fields], nxt))
+                s = nxt
+            fr.close()
+        assert fr._stage.is_pinned()
+        runs[mode] = (out, S.totals().get('segment.take', (0,))[0])
+        del fr
+        gc.collect()
+    (got, ahead), (want, load) = runs['ahead'], runs['load']
+    assert ahead >= 1 and load == 0
     for (fa, aa, la, na), (fb, ab, lb, nb) in zip(got, want):
         assert na == nb
         assert np.array_equal(fa, fb)

@@ -5,15 +5,22 @@ Off (no torch profiler running), a span keeps its name's count, total and
 self time, and nothing else.  Under torch.profiler it also opens a
 record_function and keeps a record on the profiler's own clock.  A
 segmented decode (the smallest segment over a small .lds file, as in
-tests/test_torch_segmented.py) gives each swap one `segment.swap` with the
-read, the unpack, the conversion and the copy inside it, and the decode's
-timers are readings of their spans.  The chain's comb and CX expander, as
+tests/test_torch_segmented.py) gives each swap one `segment.swap`: the
+first with the read, the unpack, the fill of the staging buffer, the
+conversion and the copy inside it, each later one the wait for the read
+ahead and the take of its samples; the read ahead's read, unpack and fill
+lie under a root `segment.readahead` of the worker's thread.  The
+decode's timers are readings of their spans.  Spans opened on two threads
+at once each nest under their own thread's, and the span metrics of the
+read ahead read hand-made records.  The chain's comb and CX expander, as
 ldchain_torch.py -F runs them, open `comb.feed` (holding `comb.levels`
 and `comb.replay`) a window fed, `comb.collect` a window collected and
 `cx.process` a frame, and touch nothing more with no profiler.  The card
 test checks the shared clock against the device's own copy of a swap."""
 
 import io
+import sys
+import threading
 import time
 
 import numpy as np
@@ -34,7 +41,9 @@ torch.set_num_threads(2)
 
 CPU = [torch.profiler.ProfilerActivity.CPU]
 START = 33046
-SWAP_PARTS = ['load.read', 'load.unpack', 'segment.convert', 'segment.copy']
+LOAD_PARTS = ['load.read', 'load.unpack', 'segment.fill']
+SWAP_PARTS = sorted(LOAD_PARTS + ['segment.convert', 'segment.copy'])
+TAKE_PARTS = ['segment.convert', 'segment.copy']
 
 
 @pytest.fixture(autouse=True)
@@ -178,6 +187,182 @@ def test_the_ring_keeps_the_last_records():
     assert S.totals()['outer'][0] == 1
 
 
+def test_spans_on_two_threads_nest_under_their_own_thread():
+    """A worker opens spans while the decode's thread has its own open:
+    each nests under its own thread's open span (the worker's root says
+    -1 and lies in no frame), the decode's frames keep their numbers in
+    turn, and the totals and the ring hold every span exactly."""
+    opened, go_on = threading.Event(), threading.Event()
+
+    def worker():
+        with span('w.root'):
+            with span('w.inner'):
+                opened.set()
+                assert go_on.wait(10)
+            with span('w.after'):
+                pass
+
+    with torch.profiler.profile(activities=CPU):
+        with span('frame'):
+            with span('a'):
+                t = threading.Thread(target=worker)
+                t.start()
+                assert opened.wait(10)
+                with span('b'):
+                    pass
+                go_on.set()
+                t.join(10)
+            with span('c'):
+                pass
+        with span('frame'):
+            with span('d'):
+                pass
+    assert not t.is_alive()
+    recs = S.records()
+    at = {r[0]: k for k, r in enumerate(recs)}
+    assert len(recs) == len(at) + 1 == 9
+    assert [r[0] for r in recs if r[0] != 'frame'] == [
+        'a', 'w.root', 'w.inner', 'b', 'w.after', 'c', 'd']
+    parent = {r[0]: (recs[r[3]][0] if r[3] >= 0 else None) for r in recs}
+    assert parent == {'frame': None, 'a': 'frame', 'b': 'a', 'c': 'frame',
+                      'd': 'frame', 'w.root': None, 'w.inner': 'w.root',
+                      'w.after': 'w.root'}
+    frame = {r[0]: r[4] for r in recs if r[0] != 'frame'}
+    assert frame == {'a': 0, 'b': 0, 'c': 0, 'd': 1, 'w.root': -1,
+                     'w.inner': -1, 'w.after': -1}
+    assert [r[4] for r in recs if r[0] == 'frame'] == [0, 1]
+    tot = S.totals()
+    for name, (n, total, own) in _totals_from(recs).items():
+        assert tot[name][0] == n
+        assert tot[name][1] == pytest.approx(total * 1e-9, rel=1e-12)
+        assert tot[name][2] == pytest.approx(own * 1e-9, rel=1e-12)
+    # the worker's spans cover none of the decode's: 'a' less 'b' alone
+    assert tot['a'][2] == pytest.approx(tot['a'][1] - tot['b'][1],
+                                        rel=1e-12)
+
+
+def test_spans_on_many_threads_lose_no_count_or_record():
+    """Twelve threads (more than the cores a test worker has) open nested
+    spans at once under a short switch interval: every count, record and
+    parent is exact."""
+    threads, each = 12, 150
+    errors = []
+
+    def worker(i):
+        try:
+            for _ in range(each):
+                with span(f't{i}'):
+                    with span(f't{i}.in'):
+                        pass
+        except Exception as e:          # reported by the test below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with torch.profiler.profile(activities=CPU):
+            pool = [threading.Thread(target=worker, args=(i,))
+                    for i in range(threads)]
+            for t in pool:
+                t.start()
+            for t in pool:
+                t.join(60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors and not any(t.is_alive() for t in pool)
+    recs = S.records()
+    assert len(recs) == 2 * threads * each
+    tot = S.totals()
+    for i in range(threads):
+        assert tot[f't{i}'][0] == tot[f't{i}.in'][0] == each
+    for name, _, _, p, frame in recs:
+        assert frame == -1
+        if name.endswith('.in'):
+            assert recs[p][0] == name[:-3]
+        else:
+            assert p == -1
+
+
+def test_the_debug_line_counts_the_swaps_that_took_the_read_ahead(capsys):
+    """`lddecode_torch.py -d` says how many segment swaps took the samples
+    read ahead: the `segment.take` spans of the `segment.swap` spans."""
+    import lddecode_torch
+    from ld_decode_tpu_torch.utils import log
+    for took in (False, True, True):
+        with span('segment.swap'):
+            if took:
+                with span('segment.take'):
+                    pass
+    level = log.get_level()
+    try:
+        log.set_level(log.DEBUG)
+        lddecode_torch.log_spans()
+    finally:
+        log.set_level(level)
+    assert 'segment read-ahead: 2 of 3 swaps took it' \
+        in capsys.readouterr().err
+
+
+def _ahead_records(hit_wait_ms=4, miss_wait_ms=10):
+    """Hand-made records of two swaps, one a hit (its wait, then the take
+    of the staged samples) and one a miss (its wait for a read that staged
+    other samples, then the load on the decode's thread), and the two read
+    aheads on the worker's thread, in ms from an epoch base."""
+    base, ms = 1_760_000_000_000_000_000, 1_000_000
+    rows = [('frame', 0, 100, -1, 0),                     # 0
+            ('segment.swap', 10, 40, 0, 0),               # 1: a hit
+            ('segment.wait', 10, 10 + hit_wait_ms, 1, 0),
+            ('segment.take', 20, 40, 1, 0),               # 3
+            ('segment.copy', 20, 21, 3, 0),
+            ('segment.convert', 21, 22, 3, 0),
+            ('segment.readahead', 41, 300, -1, -1),       # 6
+            ('load.read', 41, 100, 6, -1),
+            ('load.unpack', 100, 250, 6, -1),
+            ('segment.fill', 250, 300, 6, -1),
+            ('frame', 400, 800, -1, 1),                   # 10
+            ('segment.swap', 410, 700, 10, 1),            # 11: a miss
+            ('segment.wait', 410, 410 + miss_wait_ms, 11, 1),
+            ('load.read', 430, 500, 11, 1),
+            ('load.unpack', 500, 650, 11, 1),
+            ('segment.fill', 650, 680, 11, 1),
+            ('segment.copy', 680, 690, 11, 1),
+            ('segment.convert', 690, 700, 11, 1)]
+    return [(n, base + a * ms, base + b * ms, p, f)
+            for n, a, b, p, f in rows]
+
+
+def test_the_read_ahead_metrics_read_a_hit_and_a_miss(monkeypatch):
+    """segment.wait_ms is the median of the swaps' waits; readahead_share
+    the share of swaps that took staged samples; both read nothing
+    without a trace, and nothing from a program with no read ahead (its
+    swaps hold no wait and no take, and no read runs ahead)."""
+    from types import SimpleNamespace
+    from ldbench import harness
+    wait = harness.metric_reader('segment.wait_ms')
+    share = harness.metric_reader('segment.readahead_share')
+    run = SimpleNamespace(window_s=1.0, before={}, after={}, cell={},
+                          trace={'window_s': 1.0, 'busy_s': 0.0, 'ops': []})
+    monkeypatch.setattr(S, 'records', _ahead_records)
+    assert wait(run) == pytest.approx(7.0)
+    assert share(run) == pytest.approx(0.5)
+    monkeypatch.setattr(S, 'records', lambda: _ahead_records(4, 1)[:10])
+    assert wait(run) == pytest.approx(4.0)
+    assert share(run) == pytest.approx(1.0)
+    bare = SimpleNamespace(**dict(run.__dict__, trace=None))
+    assert wait(bare) is None and share(bare) is None
+    # the parent's swap: the load on the decode's thread, nothing ahead
+    parent = [r for r in _ahead_records()[10:] if r[0] != 'segment.wait']
+    parent = [(n, a, b, p - 10 if p >= 0 else -1, f)
+              for n, a, b, p, f in parent]
+    parent = [(n, a, b, p - 1 if p > 1 else p, f)
+              for n, a, b, p, f in parent]
+    monkeypatch.setattr(S, 'records', lambda: parent)
+    assert [r[0] for r in parent[:2]] == ['frame', 'segment.swap']
+    assert all(r[3] == 1 for r in parent[2:])
+    assert wait(run) is None
+    assert share(run) is None
+
+
 # ---------------------------------------------------------------------------
 # the decode
 
@@ -186,10 +371,11 @@ def test_the_ring_keeps_the_last_records():
 def segmented(tmp_path_factory):
     """A segmented decode of 8 frames of a 12-frame .lds file at the
     smallest segment (8 frames cross a swap), under torch.profiler, on a
-    host of four usable cores: the records, the totals, the prefetcher's
-    stats, the unpack seconds it added, the number of segment loads, the
-    native unpacks (start and end on the spans' clock, threads) and the
-    split unpacks counted."""
+    host of four usable cores, the Framer closed at its end: the records,
+    the totals, the prefetcher's stats, the unpack seconds it added, the
+    number of segment loads (swaps), the native unpacks (start and end on
+    the spans' clock, threads), the split unpacks counted and whether
+    the last segment reaches the file's end."""
     cfg = DecoderConfig(system='NTSC', freq_mhz=40.0)
     samples = TE.encode_frames(cfg, 12, TE.EncodeSpec(pattern='ramp',
                                                       cav_start_frame=900))
@@ -231,24 +417,51 @@ def segmented(tmp_path_factory):
             rv = fr.readframe(fd, s, i == 0)
             assert rv[0] is not None
             s, frames = rv[2], frames + 1
+        fr.close()
     out = dict(records=S.records(), totals=S.totals(), stats=dict(pf.stats),
                unpack=TL.unpack_seconds[route] - before, loads=len(loads),
                frames=frames, unpacks=unpacks,
-               split=TL.unpack_threads['split'] - split)
+               split=TL.unpack_threads['split'] - split,
+               eof=fr._seg_eof)
     S.reset()
     return out
 
 
+def _kids(recs, k):
+    return sorted(r[0] for r in recs if r[3] == k)
+
+
 def test_each_swap_is_one_span_with_its_parts(segmented):
+    """The first swap loads on the decode's thread; every later one waits
+    for the read ahead and takes its samples; each read ahead is a root
+    span of the worker's thread, outside every frame, holding the
+    loader's read and unpack and the fill of the staging buffer."""
     recs = segmented['records']
     swaps = [k for k, r in enumerate(recs) if r[0] == 'segment.swap']
     assert len(swaps) == segmented['loads'] >= 2
-    for k in swaps:
+    assert segmented['totals']['segment.take'][0] == len(swaps) - 1
+    for i, k in enumerate(swaps):
         assert recs[recs[k][3]][0] == 'frame'
-        parts = sorted(r[0] for r in recs if r[3] == k)
-        assert parts == SWAP_PARTS
-    # every span of the decode lies in one of its frames, numbered in turn
-    assert sorted({r[4] for r in recs}) == list(range(segmented['frames']))
+        if i == 0:
+            assert _kids(recs, k) == SWAP_PARTS
+            continue
+        assert [r[0] for r in recs if r[3] == k] == ['segment.wait',
+                                                      'segment.take']
+        take = next(j for j, r in enumerate(recs)
+                    if r[3] == k and r[0] == 'segment.take')
+        assert _kids(recs, take) == TAKE_PARTS
+    ahead = [k for k, r in enumerate(recs) if r[0] == 'segment.readahead']
+    # one a swap but the last, whose segment reaches the file's end
+    assert segmented['eof'] and len(ahead) == len(swaps) - 1
+    for k in ahead:
+        assert recs[k][3] == -1 and recs[k][4] == -1
+        assert _kids(recs, k) == LOAD_PARTS
+        assert {recs[j][4] for j, r in enumerate(recs) if r[3] == k} == {-1}
+    # every other span of the decode lies in one of its frames, numbered
+    # in turn
+    worker = set(ahead) | {j for j, r in enumerate(recs) if r[3] in ahead}
+    assert sorted({r[4] for j, r in enumerate(recs) if j not in worker}) \
+        == list(range(segmented['frames']))
     names = {r[0] for r in recs}
     assert {'frame', 'frame.weave', 'prefetch.refill', 'prefetch.dispatch',
             'prefetch.fetch', 'prefetch.unpack'} <= names
@@ -258,14 +471,15 @@ def test_each_swap_is_one_span_with_its_parts(segmented):
 
 
 def test_each_swap_unpacks_on_threads_inside_its_span(segmented):
-    """Every swap's segment (over twice MIN_GROUPS_PER_THREAD groups) is
-    unpacked split across the four cores, and its `load.unpack` span holds
-    the whole threaded call."""
+    """Every segment read (over twice MIN_GROUPS_PER_THREAD groups: the
+    first swap's and each read ahead's) is unpacked split across the four
+    cores, and its `load.unpack` span holds the whole threaded call."""
     recs = segmented['records']
     spans_ = [(a, b) for name, a, b, _, _ in recs if name == 'load.unpack']
+    reads = 1 + sum(1 for r in recs if r[0] == 'segment.readahead')
     assert TL.unpack_route() == 'native'
-    assert len(spans_) == len(segmented['unpacks']) == segmented['loads']
-    assert segmented['split'] == segmented['loads']
+    assert len(spans_) == len(segmented['unpacks']) == reads
+    assert segmented['split'] == reads >= 2
     for (a, b), (t0, t1, threads) in zip(spans_, segmented['unpacks']):
         assert threads == 4
         assert a <= t0 <= t1 <= b
